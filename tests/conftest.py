@@ -51,6 +51,10 @@ def pytest_configure(config):
         "markers",
         "evm: deposit-contract EVM harness / twin differential conformance "
         "tests (pure Python, no accelerator)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the PyTorch port's CUDA kernels); skips "
+        "with a reason where torch.cuda.is_available() is False")
 
     preset = config.getoption("--preset")
     if preset:
