@@ -1,5 +1,6 @@
 // sha256 of one 64-byte message per thread, as device functions shared by
-// the K1 (sha256.cu) and K2 (state_root.cu) kernels.
+// the K1 and K4 (sha256.cu), K2 (state_root.cu) and K7 (incremental_root.cu)
+// kernels.
 //
 // Replaces the TPU program's `_compress` (consensus_specs_tpu/ops/sha256_jax.py:28),
 // which materialises the message schedule as a (..., 64) array: here the
@@ -87,11 +88,16 @@ __device__ __forceinline__ void sha_compress_pad64(uint32_t st[8]) {
     st[4] += e; st[5] += f; st[6] += g; st[7] += h;
 }
 
+// st <- the initial hash value
+__device__ __forceinline__ void sha_init(uint32_t st[8]) {
+    st[0] = 0x6a09e667u; st[1] = 0xbb67ae85u; st[2] = 0x3c6ef372u; st[3] = 0xa54ff53au;
+    st[4] = 0x510e527fu; st[5] = 0x9b05688cu; st[6] = 0x1f83d9abu; st[7] = 0x5be0cd19u;
+}
+
 // out <- sha256(msg) for a 64-byte message given as 16 big-endian words;
 // msg is clobbered.
 __device__ __forceinline__ void sha256_64B(uint32_t msg[16], uint32_t out[8]) {
-    out[0] = 0x6a09e667u; out[1] = 0xbb67ae85u; out[2] = 0x3c6ef372u; out[3] = 0xa54ff53au;
-    out[4] = 0x510e527fu; out[5] = 0x9b05688cu; out[6] = 0x1f83d9abu; out[7] = 0x5be0cd19u;
+    sha_init(out);
     sha_compress(out, msg);
     sha_compress_pad64(out);
 }

@@ -25,7 +25,7 @@ from functools import lru_cache
 import torch
 
 from ..kernels import build
-from ..ops.sha256 import sha256_64B_words, sha256_64B_words_plain
+from ..ops.sha256 import aligned_out, sha256_64B_words, sha256_64B_words_plain
 from ..ops.sha256_host import zero_hash_words
 from ..utils.device import is_cpu
 from ..utils.u64 import MASK32, bswap32, words_i32, words_i64
@@ -138,33 +138,50 @@ _ROOT_COLUMNS = ("effective_balance", "activation_eligibility_epoch", "activatio
                  "exit_epoch", "withdrawable_epoch")
 
 
-def validator_roots_plain(static01: torch.Tensor, st: EpochState) -> torch.Tensor:
-    """(N, 8) int32 roots of the N Validator containers, in plain PyTorch:
-    leaves 0-1 from static01 (hash_tree_root(pubkey) || withdrawal
-    credentials), leaves 2-7 from the effective balance, slashed flag and
-    four epoch columns, folded as the 8-leaf container tree."""
-    n = st.num_validators
-    zeros6 = torch.zeros((n, 6), dtype=torch.int64, device=st.device)
+# The six columns a container root reads besides static01, in the order of
+# the JAX package's `_registry_cols` (engine/incremental_root.py).
+REGISTRY_COLUMNS = ("effective_balance", "slashed", "activation_eligibility_epoch",
+                    "activation_epoch", "exit_epoch", "withdrawable_epoch")
+
+
+def container_roots_plain(static01: torch.Tensor, cols) -> torch.Tensor:
+    """(K, 8) int32 Validator container roots of K rows, in plain PyTorch
+    (engine/incremental_root.py:102 `_validator_rows_roots`): leaves 0-1
+    from static01 (K, 16) (hash_tree_root(pubkey) || withdrawal
+    credentials), leaves 2-7 from the six REGISTRY_COLUMNS values (K,)
+    each, folded as the 8-leaf container tree."""
+    eff, slashed, aee, act, ext, wd = cols
+    k = eff.shape[0]
+    zeros6 = torch.zeros((k, 6), dtype=torch.int64, device=eff.device)
 
     def chunk(col):
         return torch.cat([_u64_words(col), zeros6], dim=1)
 
     def bchunk(col):  # boolean leaf: one byte
         b = (col.to(torch.int64) & 1) << 24
-        return torch.cat([b[:, None], torch.zeros((n, 7), dtype=torch.int64, device=st.device)],
+        return torch.cat([b[:, None], torch.zeros((k, 7), dtype=torch.int64, device=eff.device)],
                          dim=1)
 
     def h(*parts):
         return words_i64(sha256_64B_words_plain(words_i32(torch.cat(parts, dim=1))))
 
     h01 = words_i64(sha256_64B_words_plain(static01))
-    h23 = h(chunk(st.effective_balance), bchunk(st.slashed))
-    h45 = h(chunk(st.activation_eligibility_epoch), chunk(st.activation_epoch))
-    h67 = h(chunk(st.exit_epoch), chunk(st.withdrawable_epoch))
+    h23 = h(chunk(eff), bchunk(slashed))
+    h45 = h(chunk(aee), chunk(act))
+    h67 = h(chunk(ext), chunk(wd))
     return words_i32(h(h(h01, h23), h(h45, h67)))
 
 
-def _validator_roots_kernel(static01: torch.Tensor, st: EpochState) -> torch.Tensor:
+def registry_columns(st: EpochState) -> tuple:
+    return tuple(getattr(st, name) for name in REGISTRY_COLUMNS)
+
+
+def validator_roots_plain(static01: torch.Tensor, st: EpochState) -> torch.Tensor:
+    """(N, 8) int32 roots of the N Validator containers, in plain PyTorch."""
+    return container_roots_plain(static01, registry_columns(st))
+
+
+def _validator_roots_kernel(static01: torch.Tensor, st: EpochState, out=None) -> torch.Tensor:
     n = st.num_validators
     if static01.dtype != torch.int32 or tuple(static01.shape) != (n, 16):
         raise ValueError(f"validator_roots: static01 must be ({n}, 16) int32, "
@@ -181,7 +198,7 @@ def _validator_roots_kernel(static01: torch.Tensor, st: EpochState) -> torch.Ten
     static01 = static01.contiguous()
     if static01.data_ptr() % 16:
         static01 = static01.clone()  # the kernel reads 16-byte vectors
-    out = torch.empty((n, 8), dtype=torch.int32, device=st.device)
+    out = aligned_out(out, (n, 8), static01)
     fn = build.entry("state_root", "validator_roots", 8)
     build.count_launch("validator_roots")
     build.check(fn(static01.data_ptr(), *[t.data_ptr() for t in cols], st.slashed.data_ptr(),
@@ -189,11 +206,13 @@ def _validator_roots_kernel(static01: torch.Tensor, st: EpochState) -> torch.Ten
     return out
 
 
-def validator_roots(static01: torch.Tensor, st: EpochState) -> torch.Tensor:
-    """Kernel K2 on CUDA tensors, `validator_roots_plain` on CPU tensors."""
+def validator_roots(static01: torch.Tensor, st: EpochState, out=None) -> torch.Tensor:
+    """Kernel K2 on CUDA tensors, `validator_roots_plain` on CPU tensors;
+    `out`, if given, receives the roots."""
     if is_cpu(st.balances):
-        return validator_roots_plain(static01, st)
-    return _validator_roots_kernel(static01, st)
+        roots = validator_roots_plain(static01, st)
+        return roots if out is None else out.copy_(roots)
+    return _validator_roots_kernel(static01, st, out)
 
 
 def _validators_root(static01: torch.Tensor, st: EpochState, h, vroots) -> torch.Tensor:

@@ -29,11 +29,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("sha256", "state_root", "epoch")
+SOURCES = ("sha256", "state_root", "epoch", "shuffle", "incremental_root")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep": 0}
+LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep": 0,
+                            "sha256_1block": 0, "shuffle_rounds": 0, "dirty_scan": 0,
+                            "path_fold": 0}
 
 
 def count_launch(name: str) -> None:
@@ -97,12 +99,14 @@ def library(name: str) -> ctypes.CDLL:
 
 
 @lru_cache(maxsize=None)
-def entry(name: str, fn: str, n_ptrs: int):
+def entry(name: str, fn: str, n_ptrs: int, n_ints: int = 0):
     """C entry point `fn` of csrc/<name>.cu, declared with the calling
     convention every entry point here follows: n_ptrs pointers, then the
-    element count as long long, then the stream; returns cudaError_t."""
+    element count and n_ints further integers as long long, then the
+    stream; returns cudaError_t."""
     f = getattr(library(name), fn)
-    f.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong, ctypes.c_void_p]
+    f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_longlong] * (1 + n_ints)
+                  + [ctypes.c_void_p])
     f.restype = ctypes.c_int
     return f
 

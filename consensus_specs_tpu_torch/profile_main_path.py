@@ -4,8 +4,11 @@
 
 Builds the kernels, puts a synthetic altair-mainnet registry of N
 validators on the card (default 2**20, seed 0, from epoch 250), warms the
-resident loop up, then profiles two windows with torch.profiler: K resident
-epochs (default 8), and one `field_roots`. For each window it prints the
+resident loop up and builds its Merkle cache, then profiles four windows
+with torch.profiler: K resident epochs (default 8), one `field_roots`, one
+epoch followed by the `device_roots()` refresh of the cache, and one
+sync-committee sample (the rotation's work) on the current columns. For
+each window it prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
 activities that took the most device time. A last window runs the K
@@ -52,6 +55,7 @@ def main(argv=None) -> int:
         return 2
     from .engine.resident import ResidentEpochLoop
     from .engine.state import EpochConfig
+    from .engine.sync_committee import sync_committee_for_state
     from .engine.synthetic import synthetic_epoch_state
     from .kernels import build
 
@@ -63,16 +67,28 @@ def main(argv=None) -> int:
                                 .astype(np.uint32).view(np.int32)).to(dev)
     loop = ResidentEpochLoop(cfg, synthetic_epoch_state(cfg, args.n, seed=0, epoch=250,
                                                         device=dev), device=dev)
+    loop.device_roots(static01)
     loop.run_epochs(2)
     loop.field_roots(static01)
+    loop.device_roots()
 
     def epochs():
         loop.run_epochs(args.epochs)
         loop.flush()
 
+    def refresh():
+        loop.step_epoch()
+        loop.device_roots()
+
+    def rotation():
+        period = cfg.epochs_per_sync_committee_period
+        sync_committee_for_state(cfg, loop.state, (loop.epoch // period + 1) * period)
+
     print(f"card: {torch.cuda.get_device_name(0)}; N={args.n}")
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
-                      ("field_roots", lambda: loop.field_roots(static01))):
+                      ("field_roots", lambda: loop.field_roots(static01)),
+                      ("one epoch + device_roots refresh", refresh),
+                      ("sync-committee sample", rotation)):
         wall_us, rows = _profile(fn, torch)
         device_us = sum(r[2] for r in rows)
         if not rows:
