@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the epoch path on one NVIDIA card.
+"""Drive the PyTorch + CUDA port of the epoch and BLS paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -17,6 +17,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    twin), K6 dirty_scan and K7 path_fold on a state with crafted dirty
    rows (a case under the 1024-row budget, one over it that takes the
    full rebuild, and the record_state_root / record_block_root path);
+   K8-K12 (the BLS field, ladders, point sums, Miller loop and final
+   exponentiation) on 8 seeded items with the field's edge values, z = 1
+   and 2^64 - 1 and an empty segment, and two pairing cubes against the
+   copied oracle;
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -29,9 +33,25 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    path's on the card, the historical batch root a hashlib fold of the
    same vectors, and the rotation's 512 indices the plain sampler's on the
    same columns. Both refresh branches (K7 and the full rebuild) must run;
-5. time each kernel beside its plain version at the main path's shapes,
+5. the BLS path, its launch counts zeroed just before and read just after:
+   the signature flush of one altair block at N = 2**20 (131 checks with
+   distinct messages: the randomized check bucketed to 256, 257 Miller
+   loops), the same block with one signature replaced (the per-item pass
+   must flag exactly it), one slot's gossip aggregates (64 committees x 16
+   aggregators: the grouped check, 65 Miller loops) and that batch with a
+   bad item, and the port's BLS shim over 22 byte-level calls (one flush on
+   the card; with a bad signature it must raise). Inputs come from seed 0
+   (`crypto/bls_synthetic.flush_inputs`, the port's copy of the
+   pure-Python oracle);
+6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
-   its SASS, bytes from what this run's data needs.
+   its SASS (for K8-K12: the plain version's Fp products on the same
+   inputs times the instructions of K8's product), bytes from what this
+   run's data needs. K8-K12 are held bit-equal to their plain versions
+   there too, at every shape the BLS path gives them (K8 at the block's
+   and the gossip's M, K9 at N = 256 and 1,024, K10 on both G2 collapses
+   and the 64 G1 segments, K11 at B = 257, 65 and 512, K12's tail at 257
+   and 65 and its batch at 256).
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -63,6 +83,7 @@ N_SHUFFLE_CHECK = 65_537
 # each thread executes every instruction of its kernel once.
 HBM_BYTES_PER_S = 3.35e12
 LANE_INSTR_PER_S = 132 * 128 * 1.98e9
+BLS_KERNELS = ("fp_ops", "rlc_ladders", "point_sums", "miller_loop", "final_exp")
 
 
 class SmokeFailure(RuntimeError):
@@ -206,6 +227,305 @@ class Aside:
         return False
 
 
+def check_bls_kernels(dev, err: dict) -> None:
+    """K8-K12 each bit-equal to its plain version on the card at a small
+    batch (8 items: seeded keys, three messages, z = 1 and 2^64 - 1 among the
+    scalars, an empty segment), plus a pairing cube against the oracle."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
+    from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp
+
+    rng = np.random.default_rng(3)
+    n = 8
+    vals = [int.from_bytes(rng.bytes(48), "little") % fp.P for _ in range(2 * n)]
+    vals[:4] = [0, 1, fp.P - 1, fp.R_MOD_P]
+    words = torch.from_numpy(fp.ints_to_words(vals)).to(dev)
+    a, b = words[:n], words[n:]
+    for op in range(7):
+        got = fp.fp_ops(op, a, b if op in fp._BINARY else None)
+        plain = fp.fp_ops_plain(op, a, b if op in fp._BINARY else None)
+        err["fp_ops"] = max(err["fp_ops"], max_abs_err(got, plain))
+        require(torch.equal(got, plain), f"K8 fp_ops op {op} differs from its plain version")
+    F1, F2 = oracle.FP_FIELD, oracle.FP2_FIELD
+    ks = [int(k) for k in rng.integers(1, 2**62, n, dtype=np.int64)]
+    hs = [hash_to_curve_g2(b"chip_smoke %d" % (i % 3)) for i in range(n)]
+    pks = B.g1_to_words([oracle.pt_to_affine(F1, oracle.pt_mul(F1, oracle.G1_GEN, k))
+                         for k in ks]).to(dev)
+    sigs = B.g2_to_words([oracle.pt_to_affine(F2, oracle.pt_mul(
+        F2, oracle.pt_from_affine(F2, h), k)) for h, k in zip(hs, ks)]).to(dev)
+    zs = [1, 2**64 - 1] + [int(v) for v in rng.integers(1, 2**63, n - 2, dtype=np.int64)]
+    zb = zbits_from_ints(zs, dev)
+    for affine in (True, False):
+        got = B.rlc_ladders(pks, sigs, zb, affine)
+        plain = B.rlc_ladders_plain(pks, sigs, zb, affine)
+        err["rlc_ladders"] = max(err["rlc_ladders"], *(max_abs_err(g, p) for g, p in
+                                                       zip(got, plain)))
+        require(all(torch.equal(g, p) for g, p in zip(got, plain)),
+                f"K9 rlc_ladders (affine={affine}) differs from its plain version")
+    g1j, g2j = got
+    for pts, off in ((g1j, [0, 3, 3, 8]), (g2j, [0, n])):
+        off = torch.tensor(off, device=dev)
+        got_s, plain_s = B.point_sums(pts, off), B.point_sums_plain(pts, off)
+        err["point_sums"] = max(err["point_sums"], max_abs_err(got_s, plain_s))
+        require(torch.equal(got_s, plain_s), "K10 point_sums differs from its plain version")
+    q = B.g2_to_words(hs).to(dev)
+    m = B.miller_loop(q, pks)
+    m_plain = B.miller_loop_plain(q, pks)
+    err["miller_loop"] = max_abs_err(m, m_plain)
+    require(torch.equal(m, m_plain), "K11 miller_loop differs from its plain version")
+    for got, plain in ((B.final_exp_batch(m), B.final_exp_batch_plain(m)),
+                       (B.final_exp_batch(m[:4], m[4:]), B.final_exp_batch_plain(m[:4], m[4:])),
+                       (B.final_exp_tail(m[:-1], m[-1]), B.final_exp_tail_plain(m[:-1], m[-1]))):
+        err["final_exp"] = max(err["final_exp"], max_abs_err(got[0], plain[0]))
+        require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+                "K12 final_exp differs from its plain version")
+    cube = B.f12_from_words(B.pairing_cube_batch(q[:2], pks[:2]))
+    for i, c in enumerate(cube):
+        e = oracle.pairing(hs[i], B.affine_from_words(pks[i:i + 1], False)[0])
+        require(c == oracle.f12_mul(oracle.f12_sqr(e), e), "pairing cube != oracle")
+    print(f"check K8-K12: {n} items bit-equal to the plain versions (K8 all 7 ops with 0, 1, "
+          f"p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty segment; K12 "
+          f"batch, batch with m2, tail); 2 pairing cubes = oracle", flush=True)
+
+
+def timed(fn):
+    """fn() between two CUDA events on the current stream and on the host
+    clock: (result, event ms, host wall ms)."""
+    import torch
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    ev[1].synchronize()
+    return out, ev[0].elapsed_time(ev[1]), 1e3 * (time.perf_counter() - wall0)
+
+
+def bls_main_path(dev, inputs) -> dict:
+    """The flush of one block (131 checks: the randomized path, bucketed to
+    256), the same block with one signature replaced (the per-item path flags
+    exactly it), one slot's gossip aggregates (1024 checks, 64 messages: the
+    grouped path) and that batch with one bad item, and the shim over 20
+    byte-level calls flushed once on the card, then once with a bad one."""
+    from consensus_specs_tpu_torch.crypto import bls, bls_torch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.utils import bucketing
+
+    block, gossip, shim = inputs
+    b = bucketing.pow2_bucket(len(block), 8)
+    plan = bucketing.grouped_plan([c.q1 for c in gossip], 8)
+    out = {}
+    loops0 = B.miller_loop_items
+    ok, out["bls_block_flush_ms"], out["bls_block_flush_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(block, dev))
+    out["block_miller_loops"] = B.miller_loop_items - loops0
+    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc", items=b, distinct=b,
+                                                      miller_loops=b + 1)
+            and out["block_miller_loops"] == b + 1,
+            f"block flush: {int(ok.sum())} of {len(block)} ok, {bls_torch.LAST_FLUSH}, "
+            f"{out['block_miller_loops']} Miller loops")
+    bad_at = len(block) // 2 + 1
+    bad = list(block)
+    bad[bad_at] = bls_torch.QueuedCheck(block[bad_at].p1, block[bad_at].q1, block[bad_at].p2,
+                                        block[bad_at + 1].q2)
+    loops0 = B.miller_loop_items
+    ok, out["bls_attribution_ms"], out["bls_attribution_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(bad, dev))
+    out["attribution_miller_loops"] = B.miller_loop_items - loops0
+    require(np.flatnonzero(~ok).tolist() == [bad_at]
+            and out["attribution_miller_loops"] == b + 1 + 2 * b,
+            f"attribution flagged {np.flatnonzero(~ok).tolist()}, not [{bad_at}]")
+    loops0 = B.miller_loop_items
+    ok, out["bls_gossip_flush_ms"], out["bls_gossip_flush_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(gossip, dev))
+    out["gossip_miller_loops"] = B.miller_loop_items - loops0
+    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc_grouped", items=plan.b_n,
+                                                      distinct=plan.b_d,
+                                                      miller_loops=plan.b_d + 1)
+            and out["gossip_miller_loops"] == plan.b_d + 1,
+            f"gossip flush: {int(ok.sum())} ok, {bls_torch.LAST_FLUSH}")
+    bad = list(gossip)
+    at = len(gossip) // 2
+    bad[at] = bls_torch.QueuedCheck(gossip[at].p1, gossip[at].q1, gossip[at].p2,
+                                    gossip[at + 1].q2)
+    p1s, q1s, p2s, q2s = ([getattr(c, k) for c in bad] for k in ("p1", "q1", "p2", "q2"))
+    require(not bls_torch._device_check_all(p1s, q1s, p2s, q2s, dev),
+            "the gossip batch with a bad item passed the randomized check")
+    bls.use_device(dev)
+    pks, msgs, sigs = shim["pks"], shim["msgs"], shim["sigs"]
+    flushes = bls.flush_count
+    wall0 = time.perf_counter()
+    with bls.deferred_verification():
+        for i in range(16):
+            require(bls.Verify(pks[i], msgs[i], sigs[i]), "a deferred Verify returned False")
+        require(bls.FastAggregateVerify(pks[:4], msgs[0], shim["committee_sig"]), "deferred")
+        require(bls.AggregateVerify(pks[:2], msgs[:2], shim["multi_sig"]), "deferred")
+        for i in range(16, 20):
+            require(bls.Verify(pks[i], msgs[i], sigs[i]), "deferred")
+    out["bls_shim_flush_wall_ms"] = 1e3 * (time.perf_counter() - wall0)
+    out["shim_flush"] = dict(bls_torch.LAST_FLUSH)
+    require(bls.flush_count == flushes + 1 and out["shim_flush"]["items"] >= 21,
+            "the shim's 22 calls must flush once, on the randomized path")
+    raised = False
+    try:
+        with bls.deferred_verification():
+            for i in range(16):
+                bls.Verify(pks[i], msgs[i], sigs[i if i != 9 else 10])
+    except bls.BLSVerificationError as e:
+        raised = "[9]" in str(e)
+    require(raised, "the shim's flush with a bad signature must raise for check 9")
+    print(f"bls main path: block flush of {len(block)} checks ok through "
+          f"{out['block_miller_loops']} Miller loops; bad signature at {bad_at} attributed "
+          f"({out['attribution_miller_loops']} Miller loops); gossip flush of {len(gossip)} "
+          f"checks over {plan.d} messages ok through {out['gossip_miller_loops']} Miller loops, "
+          f"a bad item fails it; shim: 22 calls, one flush on the card, a bad one raised",
+          flush=True)
+    return out
+
+
+def _outputs(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
+    """K8-K12 at every shape of the main path: each output equal to its plain
+    version's on every element (K9's two point sets, K12's cube and is_one),
+    the time, the plain version's time and its Fp product count on the same
+    inputs (the least time: that count times the instructions of one product
+    in K8's SASS over the lane issue rate, or the kernel's bytes over HBM's
+    rate, the larger). The scalars are seeded, not the flush's CSPRNG draw."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls_torch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp
+
+    block, gossip, _ = inputs
+    cols = ([c.p1 for c in block], [c.q1 for c in block], [c.p2 for c in block],
+            [c.q2 for c in block])
+    b, (q1, p1, q2, p2) = bls_torch._pack_pairing_args(*cols, dev)
+    rng = np.random.default_rng(4)
+    zb = bls_torch.zbits_from_ints(rng.integers(1, 2**64, b, dtype=np.uint64), dev)
+    b_n, b_d, (gq1, gp1, gq2), seg = bls_torch._pack_grouped_args(
+        [c.p1 for c in gossip], [c.q1 for c in gossip], [c.q2 for c in gossip], dev)
+    gzb = bls_torch.zbits_from_ints(rng.integers(1, 2**64, b_n, dtype=np.uint64), dev)
+    flat = torch.from_numpy(fp.ints_to_words(
+        [v for c in block for v in (*c.p1, *c.q1[0], *c.q1[1], *c.q2[0], *c.q2[1], *c.p2)]))
+    canon = torch.cat([flat, flat[:(b - len(block)) * 12]]).to(dev)  # the flush's M
+    gcanon = torch.from_numpy(fp.ints_to_words(  # the gossip flush's M: 64 H(m), 1024 pk, sig
+        [v for c in gossip[::b_n // b_d] for v in (*c.q1[0], *c.q1[1])]
+        + [v for c in gossip for v in (*c.p1, *c.q2[0], *c.q2[1])])).to(dev)
+    r2 = torch.from_numpy(fp.ints_to_words([fp.R2_MOD_P])[0]).to(dev)
+    neg_g1 = B.neg_g1_words(dev)[None]
+    a1, zsig = B.rlc_ladders(p1, q2, zb)
+    whole = torch.tensor([0, b], device=dev)
+    aq = B.point_sums(zsig, whole)
+    mq, mp = torch.cat([q1, aq]), torch.cat([a1, neg_g1])
+    m = B.miller_loop(mq, mp)
+    aqs, aps = torch.cat([q1, q2]), torch.cat([p1, p2])  # the attribution's pairs
+    m2 = B.miller_loop(aqs, aps)
+    g1j, gzsig = B.rlc_ladders(gp1, gq2, gzb, affine_g1=False)
+    order, offsets = B.segment_offsets(seg, b_d)
+    g1s = g1j[order].contiguous()
+    gwhole = torch.tensor([0, b_n], device=dev)
+    gmq = torch.cat([gq1, B.point_sums(gzsig, gwhole)])
+    gmp = torch.cat([B.point_sums(g1s, offsets), neg_g1])
+    gm = B.miller_loop(gmq, gmp)
+
+    def measured(name, label, kernel, plain, reps):
+        """(ms, plain_ms, Fp products of the plain version); fails unless
+        the kernel's outputs equal the plain version's on every element"""
+        muls0 = fp.plain_muls
+        want, plain_ms, _ = timed(plain)
+        muls = fp.plain_muls - muls0
+        got = _outputs(kernel())
+        want = _outputs(want)
+        require(len(got) == len(want) and all((g is None) == (w is None) for g, w in
+                                              zip(got, want)), f"{name} ({label}): outputs")
+        pairs = [(g, w) for g, w in zip(got, want) if g is not None]
+        err[name] = max(err[name], *(max_abs_err(g, w) for g, w in pairs))
+        require(all(torch.equal(g, w) for g, w in pairs),
+                f"{name} ({label}) differs from its plain version at the main path's shape")
+        return time_ms(kernel, reps, warmup=0), plain_ms, muls
+
+    def bound(muls, nbytes):
+        t_ops, t_bytes = muls * sass_mul / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+        return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+    specs = [
+        ("fp_ops", "fp.cu", "consensus_specs_tpu/ops/limb_mont.py:39", f"M={canon.shape[0]} mul",
+         lambda: fp.fp_ops(fp.OP_MUL, canon, r2.expand_as(canon)),
+         lambda: fp.fp_ops_plain(fp.OP_MUL, canon, r2.expand_as(canon)), 3 * canon.numel() * 4),
+        ("rlc_ladders", "rlc.cu", "consensus_specs_tpu/ops/bls12_jax.py:782",
+         f"N={b} G1 affine + G2",
+         lambda: B.rlc_ladders(p1, q2, zb), lambda: B.rlc_ladders_plain(p1, q2, zb),
+         (p1.numel() + q2.numel() + zb.numel() + a1.numel() + zsig.numel()) * 4),
+        ("point_sums", "rlc.cu", "consensus_specs_tpu/ops/bls12_jax.py:1014",
+         f"G2 N={b} D=1",
+         lambda: B.point_sums(zsig, whole), lambda: B.point_sums_plain(zsig, whole),
+         (zsig.numel() + aq.numel()) * 4 + 16),
+        ("miller_loop", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:514",
+         f"B={mq.shape[0]}",
+         lambda: B.miller_loop(mq, mp), lambda: B.miller_loop_plain(mq, mp),
+         (mq.numel() + mp.numel() + m.numel()) * 4),
+        ("final_exp", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:611",
+         f"tail B={m.shape[0]}",
+         lambda: B.final_exp_tail(m[:-1], m[-1]), lambda: B.final_exp_tail_plain(m[:-1], m[-1]),
+         (m.numel() + 144 + 1) * 4),
+    ]
+    # the other shapes of the main path: (kernel, label, kernel call, plain call, bytes)
+    extra = [
+        ("fp_ops", "gossip", lambda: fp.fp_ops(fp.OP_MUL, gcanon, r2.expand_as(gcanon)),
+         lambda: fp.fp_ops_plain(fp.OP_MUL, gcanon, r2.expand_as(gcanon)),
+         3 * gcanon.numel() * 4),
+        ("rlc_ladders", "gossip", lambda: B.rlc_ladders(gp1, gq2, gzb, affine_g1=False),
+         lambda: B.rlc_ladders_plain(gp1, gq2, gzb, affine_g1=False),
+         (gp1.numel() + 2 * gq2.numel() + gzb.numel() + g1j.numel()) * 4),
+        ("point_sums", "gossip_g2", lambda: B.point_sums(gzsig, gwhole),
+         lambda: B.point_sums_plain(gzsig, gwhole), (gzsig.numel() + aq.numel()) * 4 + 16),
+        ("point_sums", "gossip_g1", lambda: B.point_sums(g1s, offsets),
+         lambda: B.point_sums_plain(g1s, offsets), (g1s.numel() + b_d * 24) * 4),
+        ("miller_loop", "gossip", lambda: B.miller_loop(gmq, gmp),
+         lambda: B.miller_loop_plain(gmq, gmp), (gmq.numel() + gmp.numel() + gm.numel()) * 4),
+        ("miller_loop", "attribution", lambda: B.miller_loop(aqs, aps),
+         lambda: B.miller_loop_plain(aqs, aps), (aqs.numel() + aps.numel() + m2.numel()) * 4),
+        ("final_exp", "gossip_tail", lambda: B.final_exp_tail(gm[:-1], gm[-1]),
+         lambda: B.final_exp_tail_plain(gm[:-1], gm[-1]), (gm.numel() + 144 + 1) * 4),
+        ("final_exp", "attribution_batch", lambda: B.final_exp_batch(m2[:b], m2[b:]),
+         lambda: B.final_exp_batch_plain(m2[:b], m2[b:]),
+         (m2.numel() + m2.numel() // 2 + b) * 4),
+    ]
+    rows = {}
+    with Aside():
+        for name, src, replaces, shape, kernel, plain, nbytes in specs:
+            ms, plain_ms, muls = measured(name, shape, kernel, plain,
+                                          5 if name == "fp_ops" else 3)
+            rows[name] = dict(name=name, source=f"consensus_specs_tpu_torch/csrc/{src}",
+                              replaces=replaces, shape=shape, ms=ms, plain_ms=plain_ms,
+                              fp_muls=muls, **bound(muls, nbytes))
+        for name, label, kernel, plain, nbytes in extra:
+            ms, plain_ms, muls = measured(name, label, kernel, plain, 3)
+            rows[name][label] = dict(ms=ms, plain_ms=plain_ms, fp_muls=muls,
+                                     **bound(muls, nbytes))
+    rows = list(rows.values())
+    for row in rows:
+        row.update(route="cuda", launches=launches[row["name"]], max_abs_err=err[row["name"]],
+                   bit_equal=err[row["name"]] == 0.0, library_ms=None,
+                   ms_over_bound=row["ms"] / row["bound_ms"])
+        print(f"kernel {row['name']} ({row['shape']}): ms={row['ms']:.5f} "
+              f"launches={row['launches']} bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+              f"plain_ms={row['plain_ms']:.3f} library_ms=None fp_muls={row['fp_muls']}",
+              flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -214,6 +534,7 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 2
 
+    from consensus_specs_tpu_torch.crypto import bls_synthetic
     from consensus_specs_tpu_torch.engine import epoch as tepoch
     from consensus_specs_tpu_torch.engine import incremental_root as tinc
     from consensus_specs_tpu_torch.engine import state_root as troot
@@ -226,6 +547,7 @@ def main() -> int:
         synthetic_epoch_state,
     )
     from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import bls12 as tbls
     from consensus_specs_tpu_torch.ops import sha256 as tsha
     from consensus_specs_tpu_torch.ops import shuffle as tshuffle
     from consensus_specs_tpu_torch.ops.sha256_host import merkle_root_hashlib, words_to_bytes
@@ -375,6 +697,16 @@ def main() -> int:
         print(f"check K6 dirty_scan, K7 path_fold: {dirty} dirty rows at N={N_CHECK} bit-equal "
               f"to the plain versions; cache ({inc.last_branch}) and record_* roots = plain path")
     del st, s01, got, plain, ref, out, old, cache_k, cache_p, inc, tree_k, tree_p
+    # the local memory the driver holds for the BLS kernels' stacks, outside
+    # torch's allocator and so outside max_memory_allocated
+    torch.cuda.synchronize()
+    free0 = torch.cuda.mem_get_info()[0]
+    stack = dict(limit_bytes=tbls.stack_limit())
+    torch.cuda.synchronize()
+    stack["reserved_bytes"] = free0 - torch.cuda.mem_get_info()[0]
+    print(f"bls stack: limit {stack['limit_bytes']} B a thread, {stack['reserved_bytes']} B of "
+          f"device memory reserved by the driver", flush=True)
+    check_bls_kernels(dev, err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -441,9 +773,10 @@ def main() -> int:
           f"{1e3 * wall_epochs / TIMED_EPOCHS:.4f}) field_roots_ms={roots_ms:.4f} "
           f"root_refresh_ms={root_refresh_ms:.4f} (host wall "
           f"{sum(refresh_wall) / SINGLE_EPOCHS:.4f}; each {refresh_ms}) "
-          f"launches={launches} max_memory_allocated={peak}")
+          f"launches={launches} max_memory_allocated={peak} (beside it the BLS stacks' "
+          f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
-        require(count > 0, f"the main path never launched {name}")
+        require(count > 0 or name in BLS_KERNELS, f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
             f"the main path must take both refresh branches, took {sorted(branches)}")
@@ -516,7 +849,24 @@ def main() -> int:
     hist_hashes = 2 * (cfg.slots_per_historical_root - 1) + 1
     del ref, after_one, after_nine, plain_roots
 
-    # 5. kernels beside their plain versions at the main path's shapes
+    # 5. the BLS path: the block flush, its attribution, the gossip flush, the shim
+    t0 = time.perf_counter()
+    bls_in = bls_synthetic.flush_inputs(seed=0)
+    print(f"bls inputs: {len(bls_in[0])} block checks, {len(bls_in[1])} gossip checks, "
+          f"{len(bls_in[2]['sks'])} shim keys made on the host in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    bls_out = bls_main_path(dev, bls_in)
+    torch.cuda.synchronize()
+    bls_launches = dict(build.LAUNCHES)
+    for name in BLS_KERNELS:
+        require(bls_launches[name] > 0, f"the BLS path never launched {name}")
+    print("bls main path: " + " ".join(f"{k}={v:.4f}" for k, v in bls_out.items()
+                                       if k.endswith("_ms"))
+          + f" launches={ {k: bls_launches[k] for k in BLS_KERNELS} }", flush=True)
+
+    # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
     level = rand_words(rng, (m, 16), dev)
     sass = {"sha256_64b": sass_instructions("sha256", "sha256_64b_kernel"),
@@ -633,6 +983,8 @@ def main() -> int:
         row.update(route="cuda", launches=launches[row["name"]],
                    max_abs_err=err[row["name"]], bit_equal=err[row["name"]] == 0.0,
                    library_ms=None)
+    rows += bls_rows(dev, bls_in, bls_launches, err,
+                     sass_instructions("fp", "fp_ops_kernelILi0E"))
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -641,10 +993,11 @@ def main() -> int:
         "root_refresh_wall_ms": sum(refresh_wall) / SINGLE_EPOCHS,
         "sync_rotation_ms": rotation["ms"], "sync_rotation_wall_ms": rotation["wall_ms"],
         "sync_rotation_loop_wall_ms": rotation["loop_wall_ms"], "n_active": n_rot,
-        "refreshes": refreshes, "max_memory_allocated": peak,
+        "refreshes": refreshes, "max_memory_allocated": peak, "bls_stack": stack,
         "historical_batch_root": dict(ms=hist_ms, plain_ms=hist_plain_ms, hashes=hist_hashes,
                                       **bound(sass["sha256_64b"] * hist_hashes, 2 * 8192 * 32
-                                              + 32))}}))
+                                              + 32))},
+        "bls_path": bls_out}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

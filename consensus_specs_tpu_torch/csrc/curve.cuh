@@ -1,0 +1,151 @@
+// G1 (over Fp) and G2 (on the twist, over Fp2) in Jacobian coordinates, one
+// thread a point, one template for both: BLS12-381 and its twist both have
+// a = 0, and b never enters the add or double formulas.
+//
+// Replaces consensus_specs_tpu/ops/bls12_jax.py `g1_double` :641, `g1_add`
+// :661, `g2_double`/`g2_add` :892-956, `g1_scalar_mul_batch` :782 and
+// `g2_scalar_mul_batch` :957 (2-bit windows), `_g1_jacobian_to_affine_batch`
+// :868, `g2_jacobian_to_affine` :1043. The formulas are JAX's. Its complete
+// add selects among the cases with masks; here the thread branches on them
+// exactly as the selects decide: Z1 = 0 gives p2, else Z2 = 0 gives p1;
+// equal points (H = r = 0) give the double of p1; opposite points (H = 0,
+// r != 0) keep the add's X and Y with Z = 0. The window gathers reach all of
+// them (digit 0 is the point at infinity).
+#pragma once
+#include "tower.cuh"
+
+template <typename F>
+struct jac {
+    F x, y, z;
+};
+
+// the field's operations under one name for both fields
+BLS_INLINE void fmul(fp &r, const fp &a, const fp &b) { fp_mul(r, a, b); }
+BLS_INLINE void fmul(fp2 &r, const fp2 &a, const fp2 &b) { f2_mul(r, a, b); }
+BLS_INLINE void fsqr(fp &r, const fp &a) { fp_mul(r, a, a); }
+BLS_INLINE void fsqr(fp2 &r, const fp2 &a) { f2_sqr(r, a); }
+BLS_INLINE void fadd(fp &r, const fp &a, const fp &b) { fp_add(r, a, b); }
+BLS_INLINE void fadd(fp2 &r, const fp2 &a, const fp2 &b) { f2_add(r, a, b); }
+BLS_INLINE void fsub(fp &r, const fp &a, const fp &b) { fp_sub(r, a, b); }
+BLS_INLINE void fsub(fp2 &r, const fp2 &a, const fp2 &b) { f2_sub(r, a, b); }
+BLS_INLINE void finv(fp &r, const fp &a) { fp_inv(r, a); }
+BLS_INLINE void finv(fp2 &r, const fp2 &a) { f2_inv(r, a); }
+BLS_INLINE bool fis_zero(const fp &a) { return fp_is_zero(a); }
+BLS_INLINE bool fis_zero(const fp2 &a) { return f2_is_zero(a); }
+BLS_INLINE void fset_zero(fp &r) { fp_set_zero(r); }
+BLS_INLINE void fset_zero(fp2 &r) { f2_set_zero(r); }
+BLS_INLINE void fset_one(fp &r) { fp_set_one(r); }
+BLS_INLINE void fset_one(fp2 &r) { f2_set_one(r); }
+
+template <typename F>
+BLS_INLINE void jac_set_inf(jac<F> &r) {
+    fset_zero(r.x);
+    fset_zero(r.y);
+    fset_zero(r.z);
+}
+
+// A = X^2, B = Y^2, C = B^2, D = 4XB, E = 3A; X3 = E^2 - 2D,
+// Y3 = E(D - X3) - 8C, Z3 = 2YZ (Z = 0 stays 0)
+template <typename F>
+BLS_NOINLINE void jac_double(jac<F> &r, const jac<F> &p) {
+    F A, B, C, D, E, X3, Y3, Z3, t;
+    fsqr(A, p.x);
+    fsqr(B, p.y);
+    fmul(D, p.x, B);
+    fmul(Z3, p.y, p.z);
+    fmul(C, B, B);
+    fadd(D, D, D);
+    fadd(D, D, D);
+    fadd(E, A, A);
+    fadd(E, E, A);
+    fsqr(X3, E);
+    fadd(t, D, D);
+    fsub(X3, X3, t);
+    fsub(t, D, X3);
+    fmul(Y3, E, t);
+    fadd(C, C, C);
+    fadd(C, C, C);
+    fadd(C, C, C);
+    fsub(Y3, Y3, C);
+    fadd(Z3, Z3, Z3);
+    r.x = X3;
+    r.y = Y3;
+    r.z = Z3;
+}
+
+template <typename F>
+BLS_NOINLINE void jac_add(jac<F> &r, const jac<F> &p1, const jac<F> &p2) {
+    if (fis_zero(p1.z)) {
+        r = p2;
+        return;
+    }
+    if (fis_zero(p2.z)) {
+        r = p1;
+        return;
+    }
+    F Z1sq, Z2sq, U1, U2, Z1cu, Z2cu, S1, S2, H, R, Hsq, Rsq, Hcu, V, Z1Z2, X3, Y3, t;
+    fsqr(Z1sq, p1.z);
+    fsqr(Z2sq, p2.z);
+    fmul(U1, p1.x, Z2sq);
+    fmul(U2, p2.x, Z1sq);
+    fmul(Z2cu, p2.z, Z2sq);
+    fmul(Z1cu, p1.z, Z1sq);
+    fmul(S1, p1.y, Z2cu);
+    fmul(S2, p2.y, Z1cu);
+    fsub(H, U2, U1);
+    fsub(R, S2, S1);
+    fsqr(Hsq, H);
+    fsqr(Rsq, R);
+    fmul(Hcu, H, Hsq);
+    fmul(V, U1, Hsq);
+    fmul(Z1Z2, p1.z, p2.z);
+    fsub(X3, Rsq, Hcu);
+    fadd(t, V, V);
+    fsub(X3, X3, t);
+    fsub(t, V, X3);
+    fmul(Y3, R, t);
+    fmul(t, S1, Hcu);
+    fsub(Y3, Y3, t);
+    fmul(Z1Z2, Z1Z2, H);
+    if (fis_zero(H)) {
+        if (fis_zero(R)) {  // equal points
+            jac_double(r, p1);
+            return;
+        }
+        fset_zero(Z1Z2);  // opposite points: infinity
+    }
+    r.x = X3;
+    r.y = Y3;
+    r.z = Z1Z2;
+}
+
+// (X/Z^2, Y/Z^3); Z = 0 gives (0, 0)
+template <typename F>
+BLS_NOINLINE void jac_to_affine(F &x, F &y, const jac<F> &p) {
+    F zinv, zinv2, t;
+    finv(zinv, p.z);
+    fsqr(zinv2, zinv);
+    fmul(t, zinv, zinv2);
+    fmul(x, p.x, zinv2);
+    fmul(y, p.y, t);
+}
+
+// [z]·p with 2-bit windows: the table [0, p, 2p, 3p], the top window's
+// entry, then 31 times two doublings and one add of the window's entry
+template <typename F>
+BLS_NOINLINE void jac_scalar_mul(jac<F> &r, const jac<F> &p, uint32_t zlo, uint32_t zhi) {
+    jac<F> tab[4], acc;
+    jac_set_inf(tab[0]);
+    tab[1] = p;
+    jac_double(tab[2], p);
+    jac_add(tab[3], tab[2], p);
+    acc = tab[zhi >> 30];
+#pragma unroll 1
+    for (int w = 30; w >= 0; --w) {
+        uint32_t d = w >= 16 ? (zhi >> (2 * (w - 16))) & 3u : (zlo >> (2 * w)) & 3u;
+        jac_double(acc, acc);
+        jac_double(acc, acc);
+        jac_add(acc, acc, tab[d]);
+    }
+    r = acc;
+}

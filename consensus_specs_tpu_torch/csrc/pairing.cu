@@ -1,0 +1,215 @@
+// The optimal-ate pairing on the card, one thread a pairing.
+//
+// K11 miller_loop: f_{|x|,Q}(P), conjugated (x < 0), per (Q, P) pair: Q
+// affine on the twist (B, 2, 2, 12), P affine (B, 2, 12) -> (B, 12, 12).
+// Replaces consensus_specs_tpu/ops/bls12_jax.py:514 `miller_loop_batch` with
+// `_dbl_step` :442 and `_add_step` :478: T in Jacobian coordinates on the
+// twist, JAX's formulas and line scaling (2YZ^3·xi for a double, HZ·xi for
+// an add, :22-27), so the output is JAX's, bit for bit.
+//
+// K12 final_exp, the final exponentiation (:611, JAX's hard-part chain, so
+// the output is the cube of the reduced pairing) and `f12_is_one` (:628):
+// - mode 1 (batch): per item, f = m1 (times m2 where given), its final
+//   exponentiation and is_one (`pairing_cube_batch` :762,
+//   `pairing_check_batch` :768);
+// - mode 0 (tail): one block tree-multiplies the n values in place (pairs i
+//   and i + ceil(k/2) at each level, __syncthreads between levels), then
+//   thread 0 exponentiates the product (`f12_prod_reduce` :1061, `rlc_tail`
+//   :1219).
+//
+// Bound: operations. A Miller loop is about 7,700 Fp products and a final
+// exponentiation about 9,300 in one thread; a block flush runs 257 Miller
+// loops (257 of the card's 16,896 lanes) and one exponentiation in one
+// thread, so both are latency-bound far from the operation rate. The bit
+// loops stay rolled; the tower functions are called, not inlined.
+#include <cuda_runtime.h>
+
+#include "curve.cuh"
+#include "stack.cuh"
+
+// One Miller doubling of T with its line (l0, l3, l5) at P = (xp, yp):
+// l0 = 2YZ^3·xi·yp, l3 = 3X^3 - 2Y^2, l5 = -3X^2 Z^2·xp
+__device__ __noinline__ void dbl_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, const fp &xp,
+                                      const fp &yp) {
+    fp2 A, B, Zsq, E, D, YZ, Zcu, EX, EZsq, Fq, C, X3, Y3, t;
+    f2_sqr(A, T.x);
+    f2_sqr(B, T.y);
+    f2_sqr(Zsq, T.z);
+    f2_add(E, A, A);
+    f2_add(E, E, A);
+    f2_mul(D, T.x, B);
+    f2_mul(YZ, T.y, T.z);
+    f2_mul(Zcu, T.z, Zsq);
+    f2_mul(EX, E, T.x);
+    f2_mul(EZsq, E, Zsq);
+    f2_add(D, D, D);
+    f2_add(D, D, D);
+    f2_sqr(Fq, E);
+    f2_sqr(C, B);
+    f2_add(t, D, D);
+    f2_sub(X3, Fq, t);
+    f2_add(C, C, C);
+    f2_add(C, C, C);
+    f2_add(C, C, C);
+    f2_sub(t, D, X3);
+    f2_mul(Y3, E, t);
+    f2_sub(Y3, Y3, C);
+    f2_mul(t, T.y, Zcu);  // YZ^3
+    f2_add(t, t, t);
+    f2_mul_xi(t, t);
+    f2_mul_fp(l0, t, yp);
+    f2_mul_fp(t, EZsq, xp);
+    f2_neg(l5, t);
+    f2_add(t, B, B);
+    f2_sub(l3, EX, t);
+    f2_add(T.z, YZ, YZ);
+    T.x = X3;
+    T.y = Y3;
+}
+
+// Mixed addition T + Q with its line: H = xq Z^2 - X, r = yq Z^3 - Y,
+// l0 = HZ·xi·yp, l3 = r·xq - HZ·yq, l5 = -r·xp
+__device__ __noinline__ void add_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, const fp2 &xq,
+                                      const fp2 &yq, const fp &xp, const fp &yp) {
+    fp2 Zsq, U, Zcu, S, H, R, Hsq, Rsq, Hcu, V, HZ, X3, Y3, t, u;
+    f2_sqr(Zsq, T.z);
+    f2_mul(U, xq, Zsq);
+    f2_mul(Zcu, T.z, Zsq);
+    f2_mul(S, yq, Zcu);
+    f2_sub(H, U, T.x);
+    f2_sub(R, S, T.y);
+    f2_sqr(Hsq, H);
+    f2_sqr(Rsq, R);
+    f2_mul(Hcu, H, Hsq);
+    f2_mul(V, T.x, Hsq);
+    f2_mul(HZ, H, T.z);
+    f2_sub(X3, Rsq, Hcu);
+    f2_add(t, V, V);
+    f2_sub(X3, X3, t);
+    f2_sub(t, V, X3);
+    f2_mul(Y3, R, t);
+    f2_mul(t, T.y, Hcu);
+    f2_sub(Y3, Y3, t);
+    f2_mul(t, R, xq);
+    f2_mul(u, HZ, yq);
+    f2_sub(l3, t, u);
+    f2_mul_xi(t, HZ);
+    f2_mul_fp(l0, t, yp);
+    f2_mul_fp(t, R, xp);
+    f2_neg(l5, t);
+    T.x = X3;
+    T.y = Y3;
+    T.z = HZ;
+}
+
+__device__ __noinline__ void miller(fp12 &f, const fp2 &xq, const fp2 &yq, const fp &xp,
+                                    const fp &yp) {
+    jac<fp2> T;
+    T.x = xq;
+    T.y = yq;
+    f2_set_one(T.z);
+    fp2 l0, l3, l5;
+    f12_set_one(f);
+#pragma unroll 1
+    for (int i = 62; i >= 0; --i) {  // the bits of |x| below its top one
+        dbl_step(T, l0, l3, l5, xp, yp);
+        f12_sqr(f, f);
+        f12_mul_sparse035(f, f, l0, l3, l5);
+        if ((X_ABS >> i) & 1) {
+            add_step(T, l0, l3, l5, xq, yq, xp, yp);
+            f12_mul_sparse035(f, f, l0, l3, l5);
+        }
+    }
+    f12_conj(f, f);
+}
+
+__global__ void miller_loop_kernel(const fp2 *__restrict__ q, const fp *__restrict__ p,
+                                   uint32_t *out, long long n) {
+    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= n) return;
+    fp2 xq = q[2 * i], yq = q[2 * i + 1];
+    fp xp = p[2 * i], yp = p[2 * i + 1];
+    fp12 f;
+    miller(f, xq, yq, xp, yp);
+    f12_store(out + 144 * i, f);
+}
+
+constexpr int TAIL_THREADS = 256;
+
+__global__ void final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok,
+                                 long long n, int mode) {
+    if (mode == 1) {
+        long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        if (i >= n) return;
+        fp12 f, g;
+        f12_load(f, m + 144 * i);
+        if (m2) {
+            f12_load(g, m2 + 144 * i);
+            f12_mul(f, f, g);
+        }
+        final_exponentiation(f, f);
+        f12_store(out + 144 * i, f);
+        ok[i] = f12_is_one(f) ? 1 : 0;
+        return;
+    }
+    int t = threadIdx.x;
+    for (long long k = n; k > 1;) {
+        long long half = (k + 1) / 2;
+        for (long long i = t; i < k - half; i += blockDim.x) {
+            fp12 a, b;
+            f12_load(a, m + 144 * i);
+            f12_load(b, m + 144 * (i + half));
+            f12_mul(a, a, b);
+            f12_store(m + 144 * i, a);
+        }
+        __syncthreads();
+        k = half;
+    }
+    if (t == 0) {
+        fp12 f;
+        f12_load(f, m);
+        final_exponentiation(f, f);
+        f12_store(out, f);
+        ok[0] = f12_is_one(f) ? 1 : 0;
+    }
+}
+
+// The device's stack limit after raising it, written to *out (a host long
+// long); launches nothing.
+extern "C" int bls_stack_limit(void *out, long long n, void *stream) {
+    int e = ensure_stack();
+    size_t cur = 0;
+    if (!e) e = (int)cudaDeviceGetLimit(&cur, cudaLimitStackSize);
+    *(long long *)out = (long long)cur;
+    return e;
+}
+
+extern "C" int miller_loop(const void *q, const void *p, void *out, long long n, void *stream) {
+    int e = ensure_stack();
+    if (e) return e;
+    if (n > 0) {
+        const int threads = 64;
+        miller_loop_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                             (cudaStream_t)stream>>>((const fp2 *)q, (const fp *)p,
+                                                     (uint32_t *)out, n);
+    }
+    return (int)cudaGetLastError();
+}
+
+extern "C" int final_exp(void *m, const void *m2, void *out, void *ok, long long n,
+                         long long mode, void *stream) {
+    int e = ensure_stack();
+    if (e) return e;
+    if (n > 0) {
+        cudaStream_t s = (cudaStream_t)stream;
+        if (mode == 1) {
+            const int threads = 64;
+            final_exp_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
+                (uint32_t *)m, (const uint32_t *)m2, (uint32_t *)out, (int *)ok, n, 1);
+        } else {
+            final_exp_kernel<<<1, TAIL_THREADS, 0, s>>>((uint32_t *)m, nullptr, (uint32_t *)out,
+                                                        (int *)ok, n, 0);
+        }
+    }
+    return (int)cudaGetLastError();
+}

@@ -1,9 +1,17 @@
-"""Carry epoch state and config between the JAX package and the port.
+"""Carry values between the JAX package and the port.
 
 The JAX `EpochState` leaves, read as numpy (`np.asarray(leaf)`), come in as
 uint64 / uint32 / uint8 / bool arrays; the port stores uint64 as int64 and
 uint32 words as int32 with the same bit patterns (views, no arithmetic), so
 the round trip is exact.
+
+Field values: the JAX limb backend (ops/fp_jax.py) holds an Fp as (..., 24)
+uint32 sixteen-bit limbs, the port as (..., 12) int32 words, both the
+Montgomery value a·2^384 mod p, so the conversion is a repacking. An Fp2 is
+JAX's (re, im) tuple and the port's (..., 2, 12); an Fp12 JAX's six Fp2
+coefficients and the port's (..., 12, 12). JAX's RNS backend (its default)
+has another layout: its values cross as canonical ints (its own
+`mont_batch_to_ints`) and `fp.ints_to_mont_words`.
 """
 from __future__ import annotations
 
@@ -48,3 +56,35 @@ def epoch_config_from_dict(d: dict) -> EpochConfig:
     d = dict(d)
     d["participation_flag_weights"] = tuple(d["participation_flag_weights"])
     return EpochConfig(**d)
+
+
+def fp_from_jax_limbs(limbs) -> torch.Tensor:
+    """JAX limb-backend Fp (..., 24) uint32 -> the port's (..., 12) int32."""
+    a = np.asarray(limbs).astype(np.uint32)
+    words = a[..., 0::2] | (a[..., 1::2] << np.uint32(16))
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+
+
+def fp_to_jax_limbs(words: torch.Tensor) -> np.ndarray:
+    """The port's (..., 12) int32 -> JAX limb-backend (..., 24) uint32."""
+    w = words.detach().cpu().numpy().view(np.uint32)
+    return np.stack([w & np.uint32(0xFFFF), w >> np.uint32(16)], -1).reshape(
+        *w.shape[:-1], 2 * w.shape[-1])
+
+
+def f2_from_jax(x) -> torch.Tensor:
+    """JAX Fp2 (re, im) -> (..., 2, 12)."""
+    return torch.stack([fp_from_jax_limbs(x[0]), fp_from_jax_limbs(x[1])], -2)
+
+
+def f2_to_jax(words: torch.Tensor) -> tuple:
+    return fp_to_jax_limbs(words[..., 0, :]), fp_to_jax_limbs(words[..., 1, :])
+
+
+def f12_from_jax(f) -> torch.Tensor:
+    """JAX Fp12 (six Fp2 coefficients of w^k) -> (..., 12, 12)."""
+    return torch.cat([f2_from_jax(c) for c in f], -2)
+
+
+def f12_to_jax(words: torch.Tensor) -> tuple:
+    return tuple(f2_to_jax(words[..., 2 * k:2 * k + 2, :]) for k in range(6))

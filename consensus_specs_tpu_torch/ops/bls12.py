@@ -1,0 +1,894 @@
+"""BLS12-381 towers, curves, optimal-ate pairing and the randomized batch
+check (counterpart of ops/bls12_jax.py).
+
+Representation. Public functions take and return Montgomery words
+(ops/fp.py): Fp (..., 12) int32, Fp2 (..., 2, 12) as (re, im), Fp12
+(..., 12, 12) as the six Fp2 coefficients of w^k (w^6 = xi = 1 + u) flattened
+(row 2k + c), G1 affine (..., 2, 12), G2 affine on the twist (..., 2, 2, 12),
+Jacobian points (..., 3, 12) / (..., 3, 2, 12), 64-bit scalars z as (..., 2)
+int32 words (low word first). The plain versions work on the same shapes in
+sixteen-bit limbs (last axis 24, int64); the `f2_*`, `f6_*`, `f12_*`, `g1_*`,
+`g2_*` functions below are plain and limb-level, and are what the kernels
+compute inside one thread.
+
+Every Fp value is canonical, so any correct formula for a tower product gives
+the same words: the towers (f12_mul and f12_sqr by Karatsuba over Fp6,
+Granger-Scott for cyclotomic squares) are free, and the plain version uses the
+kernels' formulas so that `fp.plain_muls` counts the kernels' products. What
+is not free is where the JAX package's values depend on a representative:
+- the Miller loop keeps T in Jacobian coordinates with the JAX formulas and
+  the same line scaling (2YZ^3·xi for a double, HZ·xi for an add,
+  ops/bls12_jax.py:22-27), so its output is bit-equal to JAX's before the
+  final exponentiation;
+- the final exponentiation is JAX's chain, (x-1)^2 (x+p) (x^2+p^2-1) + 3
+  = 3 (p^4 - p^2 + 1)/r (:28-34): it yields the CUBE of the reduced
+  pairing, bit-equal to `pairing_cube_batch`;
+- g1_add / g2_add are JAX's complete additions: infinity in (Z = 0) returns
+  the other point, equal points double, opposite points give Z = 0 with the
+  add formula's X and Y. The kernels branch on those cases exactly as JAX
+  selects; the plain version computes each case only on its rows, so its
+  product count is what this data needs.
+
+Kernels (csrc/rlc.cu, csrc/pairing.cu; one thread an item, the field in
+csrc/fp.cuh, the towers in csrc/tower.cuh, the curves in csrc/curve.cuh):
+- K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
+  (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
+  in the same thread where asked (:868);
+- K10 `point_sums`: one block a segment, the sum of its Jacobian points made
+  affine (`g2_sum_reduce` :1014 + `g2_jacobian_to_affine` :1043,
+  `g1_segment_sum` :1172);
+- K11 `miller_loop` (:514);
+- K12 `final_exp`: the final exponentiation and `f12_is_one` (:611, :628),
+  by item (`pairing_cube_batch` :762, `pairing_check_batch` :768) or after a
+  one-block tree product (`f12_prod_reduce` :1061, `rlc_tail` :1219).
+Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
+CPU tensors.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..crypto import bls12_381 as oracle
+from ..kernels import build
+from ..utils.device import is_cpu
+from . import fp
+from .fp import (
+    NLIMBS,
+    NWORDS,
+    P,
+    fp_add,
+    fp_inv,
+    fp_is_zero,
+    fp_mul,
+    fp_neg,
+    fp_sqr,
+    fp_sub,
+    to_limbs,
+    to_words,
+)
+
+X_PARAM = oracle.X_PARAM
+ABS_X = abs(X_PARAM)
+X_BITS = [int(c) for c in bin(ABS_X)[3:]]  # the Miller loop's bits, MSB dropped
+assert ((X_PARAM - 1) ** 2 * (X_PARAM + P) * (X_PARAM**2 + P**2 - 1) + 3) == 3 * (
+    (P**4 - P**2 + 1) // oracle.R)
+
+GAMMA1 = [oracle.f2_pow(oracle.XI, i * (P - 1) // 6) for i in range(6)]
+GAMMA2 = [oracle.f2_mul(oracle.f2_conj(g), g) for g in GAMMA1]
+NEG_G1 = (oracle.G1_GEN_AFF[0], (-oracle.G1_GEN_AFF[1]) % P)
+
+miller_loop_items = 0  # Miller loops run through `miller_loop`, kernel or plain
+
+
+# --- host codecs (canonical ints <-> Montgomery words) --------------------------
+
+
+def g1_to_words(points) -> torch.Tensor:
+    """Affine G1 int pairs -> (n, 2, 12) Montgomery words (host, CPU)."""
+    flat = [c for pt in points for c in pt]
+    return torch.from_numpy(fp.ints_to_mont_words(flat).reshape(-1, 2, NWORDS))
+
+
+def g2_to_words(points) -> torch.Tensor:
+    """Affine G2 twist points ((x0, x1), (y0, y1)) -> (n, 2, 2, 12)."""
+    flat = [c for pt in points for coord in pt for c in coord]
+    return torch.from_numpy(fp.ints_to_mont_words(flat).reshape(-1, 2, 2, NWORDS))
+
+
+def f12_to_words(values) -> torch.Tensor:
+    """Oracle Fp12 values (6 int pairs) -> (n, 12, 12)."""
+    flat = [c for v in values for coeff in v for c in coeff]
+    return torch.from_numpy(fp.ints_to_mont_words(flat).reshape(-1, 12, NWORDS))
+
+
+def f12_from_words(arr) -> list:
+    """(..., 12, 12) words -> list of oracle Fp12 tuples."""
+    ints = fp.mont_words_to_ints(arr)
+    return [tuple((ints[i + 2 * k], ints[i + 2 * k + 1]) for k in range(6))
+            for i in range(0, len(ints), 12)]
+
+
+def affine_from_words(arr, g2: bool) -> list:
+    """(..., 2, 12) G1 or (..., 2, 2, 12) G2 affine words -> int tuples."""
+    ints = fp.mont_words_to_ints(arr)
+    if not g2:
+        return [(ints[i], ints[i + 1]) for i in range(0, len(ints), 2)]
+    return [((ints[i], ints[i + 1]), (ints[i + 2], ints[i + 3])) for i in range(0, len(ints), 4)]
+
+
+def _limb_const(rows, like: torch.Tensor) -> torch.Tensor:
+    """Canonical ints (nested lists) -> Montgomery limbs on like's device."""
+    flat = np.asarray(rows, dtype=object).reshape(-1)
+    words = torch.from_numpy(fp.ints_to_mont_words(flat))
+    return to_limbs(words).reshape(*np.asarray(rows, dtype=object).shape, NLIMBS).to(like.device)
+
+
+# --- Fp2 = Fp[u]/(u^2 + 1): (..., 2, 24) ---------------------------------------
+
+
+def f2_add(x, y):
+    return fp_add(x, y)
+
+
+def f2_sub(x, y):
+    return fp_sub(x, y)
+
+
+def f2_neg(x):
+    return fp_neg(x)
+
+
+def f2_conj(x):
+    return torch.stack([x[..., 0, :], fp_neg(x[..., 1, :])], -2)
+
+
+def f2_mul(x, y):
+    """Karatsuba: 3 Fp products in one stacked call."""
+    x, y = torch.broadcast_tensors(x, y)
+    s = fp_add(torch.stack([x[..., 0, :], y[..., 0, :]]), torch.stack([x[..., 1, :], y[..., 1, :]]))
+    m = fp_mul(torch.stack([x[..., 0, :], x[..., 1, :], s[0]], -2),
+               torch.stack([y[..., 0, :], y[..., 1, :], s[1]], -2))
+    ac, bd, t = m.unbind(-2)
+    d = fp_sub(torch.stack([ac, t], -2), torch.stack([bd, ac], -2))
+    return torch.stack([d[..., 0, :], fp_sub(d[..., 1, :], bd)], -2)
+
+
+def f2_sqr(x):
+    """(a+b)(a-b) + 2ab·u: 2 Fp products."""
+    a, b = x[..., 0, :], x[..., 1, :]
+    s = fp_add(torch.stack([a, a], -2), torch.stack([b, a], -2))
+    return fp_mul(torch.stack([s[..., 0, :], s[..., 1, :]], -2),
+                  torch.stack([fp_sub(a, b), b], -2))
+
+
+def f2_mul_xi(x):
+    """x·(1 + u) = (a - b) + (a + b)u."""
+    a, b = x[..., 0, :], x[..., 1, :]
+    return torch.stack([fp_sub(a, b), fp_add(a, b)], -2)
+
+
+def f2_inv(x):
+    a, b = x[..., 0, :], x[..., 1, :]
+    sq = fp_sqr(x)
+    ninv = fp_inv(fp_add(sq[..., 0, :], sq[..., 1, :]))
+    m = fp_mul(x, ninv[..., None, :])
+    return torch.stack([m[..., 0, :], fp_neg(m[..., 1, :])], -2)
+
+
+def f2_is_zero(x):
+    return fp_is_zero(x).all(-1)
+
+
+def f2_one_like(x):
+    one = torch.zeros_like(x)
+    one[..., 0, :] = fp.const_limbs(fp.R_MOD_P, x)
+    return one
+
+
+# --- Fp6 = Fp2[v]/(v^3 - xi): (..., 3, 2, 24) ------------------------------------
+
+
+def f6_mul(a, b):
+    """Karatsuba over Fp2: 6 Fp2 products in one stacked call."""
+    a, b = torch.broadcast_tensors(a, b)
+    a0, a1, a2 = a.unbind(-3)
+    b0, b1, b2 = b.unbind(-3)
+    sa = f2_add(torch.stack([a1, a0, a0], -3), torch.stack([a2, a1, a2], -3))
+    sb = f2_add(torch.stack([b1, b0, b0], -3), torch.stack([b2, b1, b2], -3))
+    m = f2_mul(torch.cat([a, sa], -3), torch.cat([b, sb], -3))
+    t0, t1, t2, s12, s01, s02 = m.unbind(-3)
+    c0 = f2_add(t0, f2_mul_xi(f2_sub(s12, f2_add(t1, t2))))
+    c1 = f2_add(f2_sub(s01, f2_add(t0, t1)), f2_mul_xi(t2))
+    c2 = f2_add(f2_sub(s02, f2_add(t0, t2)), t1)
+    return torch.stack([c0, c1, c2], -3)
+
+
+def f6_mul_by_v(a):
+    return torch.stack([f2_mul_xi(a[..., 2, :, :]), a[..., 0, :, :], a[..., 1, :, :]], -3)
+
+
+def f6_inv(a):
+    a0, a1, a2 = a.unbind(-3)
+    sq = f2_sqr(a)
+    m = f2_mul(torch.stack([a1, a0, a0], -3), torch.stack([a2, a1, a2], -3))
+    a12, a01, a02 = m.unbind(-3)
+    c0 = f2_sub(sq[..., 0, :, :], f2_mul_xi(a12))
+    c1 = f2_sub(f2_mul_xi(sq[..., 2, :, :]), a01)
+    c2 = f2_sub(sq[..., 1, :, :], a02)
+    m = f2_mul(torch.stack([a0, a2, a1], -3), torch.stack([c0, c1, c2], -3))
+    t = f2_add(m[..., 0, :, :], f2_mul_xi(f2_add(m[..., 1, :, :], m[..., 2, :, :])))
+    return f2_mul(torch.stack([c0, c1, c2], -3), f2_inv(t)[..., None, :, :])
+
+
+# --- Fp12 in the w basis: (..., 6, 2, 24); the Fp6 pair (a, b) = (even, odd) -----
+
+
+def _split(x):
+    return x[..., 0::2, :, :], x[..., 1::2, :, :]
+
+
+def _join(a, b):
+    return torch.stack([a, b], -3).flatten(-4, -3)
+
+
+def f12_one_like(x):
+    one = torch.zeros(x.shape[:-2] + (6, 2, NLIMBS), dtype=torch.int64, device=x.device)
+    one[..., 0, 0, :] = fp.const_limbs(fp.R_MOD_P, x)
+    return one
+
+
+def f12_conj(x):
+    """f^(p^6): the odd coefficients negated."""
+    a, b = _split(x)
+    return _join(a, f2_neg(b))
+
+
+def f12_mul(x, y):
+    """(a0 + a1 w)(b0 + b1 w) = a0b0 + a1b1·v + ((a0+a1)(b0+b1) - a0b0 - a1b1) w:
+    3 Fp6 products, 54 Fp products."""
+    x, y = torch.broadcast_tensors(x, y)
+    a0, a1 = _split(x)
+    b0, b1 = _split(y)
+    m = f6_mul(torch.stack([a0, a1, f2_add(a0, a1)]), torch.stack([b0, b1, f2_add(b0, b1)]))
+    t0, t1, t2 = m
+    return _join(f2_add(t0, f6_mul_by_v(t1)), f2_sub(t2, f2_add(t0, t1)))
+
+
+def f12_sqr(x):
+    """(a + b w)^2 = (a+b)(a + v b) - ab - v ab + 2ab w: 2 Fp6 products."""
+    a, b = _split(x)
+    m = f6_mul(torch.stack([a, f2_add(a, b)]), torch.stack([b, f2_add(a, f6_mul_by_v(b))]))
+    t, s = m
+    return _join(f2_sub(s, f2_add(t, f6_mul_by_v(t))), f2_add(t, t))
+
+
+def f12_mul_sparse035(f, l0, l3, l5):
+    """f·(l0 + l3 w^3 + l5 w^5), the line (0, l3, l5) on the odd Fp6:
+    a·l0 by coefficient, b·(0, l3, l5) and (a + b)(l0, l3, l5) as Fp6
+    products, 15 Fp2 products."""
+    a, b = _split(f)
+    zero = torch.zeros_like(l0)
+    t0 = f2_mul(a, l0[..., None, :, :])
+    lines = torch.stack([torch.stack([zero, l3, l5], -3), torch.stack([l0, l3, l5], -3)])
+    m = f6_mul(torch.stack([b, f2_add(a, b)]), lines)
+    t1, t2 = m
+    return _join(f2_add(t0, f6_mul_by_v(t1)), f2_sub(t2, f2_add(t0, t1)))
+
+
+def f12_inv(x):
+    """(a + b w)^-1 = (a - b w)/(a^2 - v b^2)."""
+    a, b = _split(x)
+    m = f6_mul(torch.stack([a, b]), torch.stack([a, b]))
+    dinv = f6_inv(f2_sub(m[0], f6_mul_by_v(m[1])))
+    r = f6_mul(torch.stack([a, b]), dinv)
+    return _join(r[0], f2_neg(r[1]))
+
+
+def f12_frobenius(x):
+    """f^p: each coefficient conjugated, times gamma1^k."""
+    return f2_mul(f2_conj(x), _limb_const(GAMMA1, x))
+
+
+def f12_frobenius2(x):
+    """f^(p^2): coefficient k times gamma2^k."""
+    return f2_mul(x, _limb_const(GAMMA2, x))
+
+
+def f12_cyclotomic_sqr(f):
+    """Granger-Scott squaring for unitary f (ops/bls12_jax.py:539): with
+    s = w^3 and f = A + B w + C w^2 over Fp4 = Fp2[s],
+    f^2 = (3A^2 - 2conj(A)) + (3 s C^2 + 2 conj(B)) w + (3B^2 - 2conj(C)) w^2."""
+    c = f.unbind(-3)
+    x = torch.stack([torch.stack([c[0], c[1], c[2]], -3), torch.stack([c[3], c[4], c[5]], -3)])
+    sq = f2_sqr(x)  # a^2 and b^2 of A, B, C
+    ab = f2_mul(x[0], x[1])
+    re = f2_add(sq[0], f2_mul_xi(sq[1]))  # Fp4 squares: (a^2 + xi b^2) + 2ab s
+    im = f2_add(ab, ab)
+
+    def triple(t):
+        return f2_add(f2_add(t, t), t)
+
+    def twice(t):
+        return f2_add(t, t)
+
+    # A' = 3A^2 - 2conj(A); B' = 3 s C^2 + 2 conj(B); C' = 3B^2 - 2conj(C)
+    a0 = f2_sub(triple(re[..., 0, :, :]), twice(c[0]))
+    a1 = f2_add(triple(im[..., 0, :, :]), twice(c[3]))
+    b0 = f2_add(triple(f2_mul_xi(im[..., 2, :, :])), twice(c[1]))
+    b1 = f2_sub(triple(re[..., 2, :, :]), twice(c[4]))
+    c0 = f2_sub(triple(re[..., 1, :, :]), twice(c[2]))
+    c1 = f2_add(triple(im[..., 1, :, :]), twice(c[5]))
+    return torch.stack([a0, b0, c0, a1, b1, c1], -3)
+
+
+def f12_is_one(f):
+    """(...) bool: f == 1 in the Montgomery domain."""
+    return (f == f12_one_like(f[..., 0, :, :])).flatten(-3).all(-1)
+
+
+# --- the pairing (limbs) ---------------------------------------------------------
+
+
+def _dbl_step(T, xp, yp):
+    """One Miller doubling of T = (X, Y, Z) on the twist, with the line
+    l0 = 2YZ^3·xi·yp, l3 = 3X^3 - 2Y^2, l5 = -3X^2 Z^2·xp (:442)."""
+    X, Y, Z = T.unbind(-3)
+    sq = f2_sqr(T)
+    A, B, Zsq = sq.unbind(-3)
+    E = f2_add(f2_add(A, A), A)
+    m1 = f2_mul(torch.stack([X, Y, Z, E, E], -3), torch.stack([B, Z, Zsq, X, Zsq], -3))
+    D0, YZ, Zcu, EX, EZsq = m1.unbind(-3)
+    D = f2_add(D0, D0)
+    D = f2_add(D, D)
+    sq2 = f2_sqr(torch.stack([E, B], -3))
+    Fq, C = sq2.unbind(-3)
+    X3 = f2_sub(Fq, f2_add(D, D))
+    C8 = f2_add(C, C)
+    C8 = f2_add(C8, C8)
+    C8 = f2_add(C8, C8)
+    m2 = f2_mul(torch.stack([E, Y], -3), torch.stack([f2_sub(D, X3), Zcu], -3))
+    Y3a, YZcu = m2.unbind(-3)
+    Y3 = f2_sub(Y3a, C8)
+    Z3 = f2_add(YZ, YZ)
+    xi0 = f2_mul_xi(f2_add(YZcu, YZcu))
+    lm = fp_mul(torch.stack([xi0, EZsq], -3), torch.stack([yp, xp], -2)[..., None, :])
+    l0, l5 = lm[..., 0, :, :], f2_neg(lm[..., 1, :, :])
+    l3 = f2_sub(EX, f2_add(B, B))
+    return torch.stack([X3, Y3, Z3], -3), (l0, l3, l5)
+
+
+def _add_step(T, Q, xp, yp):
+    """Mixed addition T + Q (Q affine on the twist), with the line
+    l0 = HZ·xi·yp, l3 = r·xq - HZ·yq, l5 = -r·xp (:478)."""
+    X, Y, Z = T.unbind(-3)
+    xq, yq = Q.unbind(-3)
+    Zsq = f2_sqr(Z)
+    m1 = f2_mul(torch.stack([xq, Z], -3), Zsq[..., None, :, :])
+    U, Zcu = m1.unbind(-3)
+    S = f2_mul(yq, Zcu)
+    H = f2_sub(U, X)
+    r = f2_sub(S, Y)
+    sq = f2_sqr(torch.stack([H, r], -3))
+    Hsq, rsq = sq.unbind(-3)
+    m2 = f2_mul(torch.stack([H, X, H], -3), torch.stack([Hsq, Hsq, Z], -3))
+    Hcu, V, HZ = m2.unbind(-3)
+    X3 = f2_sub(f2_sub(rsq, Hcu), f2_add(V, V))
+    m3 = f2_mul(torch.stack([r, Y, r, HZ], -3), torch.stack([f2_sub(V, X3), Hcu, xq, yq], -3))
+    Y3a, YHcu, rxq, HZyq = m3.unbind(-3)
+    Y3 = f2_sub(Y3a, YHcu)
+    Z3 = HZ  # = Z·H, which JAX multiplies again
+    xiHZ = f2_mul_xi(HZ)
+    lm = fp_mul(torch.stack([xiHZ, r], -3), torch.stack([yp, xp], -2)[..., None, :])
+    l0, l5 = lm[..., 0, :, :], f2_neg(lm[..., 1, :, :])
+    l3 = f2_sub(rxq, HZyq)
+    return torch.stack([X3, Y3, Z3], -3), (l0, l3, l5)
+
+
+def miller_loop_limbs(Q, Pt):
+    """f_{|x|,Q}(P), conjugated (x < 0): Q (..., 2, 2, 24), P (..., 2, 24)
+    -> (..., 6, 2, 24)."""
+    xp, yp = Pt[..., 0, :], Pt[..., 1, :]
+    T = torch.stack([Q[..., 0, :, :], Q[..., 1, :, :], f2_one_like(Q[..., 0, :, :])], -3)
+    f = f12_one_like(Q[..., 0, :, :])
+    for bit in X_BITS:
+        T, (l0, l3, l5) = _dbl_step(T, xp, yp)
+        f = f12_mul_sparse035(f12_sqr(f), l0, l3, l5)
+        if bit:
+            T, (l0, l3, l5) = _add_step(T, Q, xp, yp)
+            f = f12_mul_sparse035(f, l0, l3, l5)
+    return f12_conj(f)
+
+
+def _f12_pow_x(f):
+    """f^x for unitary f (x < 0: the conjugate of f^|x|)."""
+    r = f
+    for bit in X_BITS:
+        r = f12_cyclotomic_sqr(r)
+        if bit:
+            r = f12_mul(r, f)
+    return f12_conj(r)
+
+
+def final_exponentiation_limbs(f):
+    """The cube of the reduced pairing (:611): the easy part, then the hard
+    part (x-1)^2 (x+p) (x^2+p^2-1) + 3."""
+    f = f12_mul(f12_conj(f), f12_inv(f))
+    f = f12_mul(f12_frobenius2(f), f)
+    a = f12_mul(_f12_pow_x(f), f12_conj(f))  # f^(x-1)
+    a = f12_mul(_f12_pow_x(a), f12_conj(a))  # ^(x-1)^2
+    b = f12_mul(_f12_pow_x(a), f12_frobenius(a))  # ^(x+p)
+    c = f12_mul(f12_mul(_f12_pow_x(_f12_pow_x(b)), f12_frobenius2(b)), f12_conj(b))
+    return f12_mul(c, f12_mul(f12_sqr(f), f))
+
+
+# --- curves (limbs): one code for G1 over Fp and G2 over Fp2 ----------------------
+
+
+class _Fp:
+    dims = 1
+    mul, sqr, add, sub = staticmethod(fp_mul), staticmethod(fp_sqr), staticmethod(fp_add), \
+        staticmethod(fp_sub)
+    is_zero = staticmethod(fp_is_zero)
+    inv = staticmethod(fp_inv)
+
+
+class _Fp2:
+    dims = 2
+    mul, sqr, add, sub = staticmethod(f2_mul), staticmethod(f2_sqr), staticmethod(f2_add), \
+        staticmethod(f2_sub)
+    is_zero = staticmethod(f2_is_zero)
+    inv = staticmethod(f2_inv)
+
+
+def _stack(F, xs):
+    return torch.stack(xs, -1 - F.dims)
+
+
+def _unbind(F, x):
+    return x.unbind(-1 - F.dims)
+
+
+def jac_double(F, pt):
+    """Jacobian doubling, no special case (Z = 0 stays Z = 0) (:641, :892)."""
+    X, Y, Z = _unbind(F, pt)
+    A, B = _unbind(F, F.sqr(_stack(F, [X, Y])))
+    D0, YZ, C = _unbind(F, F.mul(_stack(F, [X, Y, B]), _stack(F, [B, Z, B])))
+    D = F.add(D0, D0)
+    D = F.add(D, D)
+    E = F.add(F.add(A, A), A)
+    X3 = F.sub(F.sqr(E), F.add(D, D))
+    C8 = F.add(C, C)
+    C8 = F.add(C8, C8)
+    C8 = F.add(C8, C8)
+    Y3 = F.sub(F.mul(E, F.sub(D, X3)), C8)
+    return _stack(F, [X3, Y3, F.add(YZ, YZ)])
+
+
+def _jac_add_core(F, p1, p2):
+    X1, Y1, Z1 = _unbind(F, p1)
+    X2, Y2, Z2 = _unbind(F, p2)
+    Z1sq, Z2sq = _unbind(F, F.sqr(_stack(F, [Z1, Z2])))
+    U1, U2, Z2cu, Z1cu = _unbind(F, F.mul(_stack(F, [X1, X2, Z2, Z1]),
+                                          _stack(F, [Z2sq, Z1sq, Z2sq, Z1sq])))
+    S1, S2 = _unbind(F, F.mul(_stack(F, [Y1, Y2]), _stack(F, [Z2cu, Z1cu])))
+    H = F.sub(U2, U1)
+    r = F.sub(S2, S1)
+    Hsq, rsq = _unbind(F, F.sqr(_stack(F, [H, r])))
+    Hcu, V, Z1Z2 = _unbind(F, F.mul(_stack(F, [H, U1, Z1]), _stack(F, [Hsq, Hsq, Z2])))
+    X3 = F.sub(F.sub(rsq, Hcu), F.add(V, V))
+    m = F.mul(_stack(F, [r, S1, Z1Z2]), _stack(F, [F.sub(V, X3), Hcu, H]))
+    Y3a, S1Hcu, Z3 = _unbind(F, m)
+    return _stack(F, [X3, F.sub(Y3a, S1Hcu), Z3]), F.is_zero(H), F.is_zero(r)
+
+
+def jac_add(F, p1, p2):
+    """Complete Jacobian addition (:661, :913): Z1 = 0 gives p2, else Z2 = 0
+    gives p1; equal points double p1; opposite points keep the add's X, Y
+    with Z = 0. Each case is computed only on its rows."""
+    p1, p2 = torch.broadcast_tensors(p1, p2)
+    shape = p1.shape
+    tail = shape[-1 - F.dims:]
+    a, b = p1.reshape(-1, *tail), p2.reshape(-1, *tail)
+    inf1, inf2 = F.is_zero(a[:, 2]), F.is_zero(b[:, 2])
+    sel = inf1.reshape(-1, *([1] * len(tail)))
+    out = torch.where(sel, b, a)
+    live = (~inf1 & ~inf2).nonzero()[:, 0]
+    if live.numel():
+        res, same_x, same_y = _jac_add_core(F, a[live], b[live])
+        dbl = (same_x & same_y).nonzero()[:, 0]
+        if dbl.numel():
+            res[dbl] = jac_double(F, a[live][dbl])
+        res[same_x & ~same_y, 2] = 0
+        out[live] = res
+    return out.reshape(shape)
+
+
+def jac_to_affine(F, pt):
+    """(X/Z^2, Y/Z^3); Z = 0 gives (0, 0) (inv(0) = 0) (:868, :1043)."""
+    X, Y, Z = _unbind(F, pt)
+    zinv = F.inv(Z)
+    zinv2 = F.sqr(zinv)
+    return F.mul(_stack(F, [X, Y]), _stack(F, [zinv2, F.mul(zinv, zinv2)]))
+
+
+def g1_double(pt):
+    return jac_double(_Fp, pt)
+
+
+def g1_add(p1, p2):
+    return jac_add(_Fp, p1, p2)
+
+
+def g2_double(pt):
+    return jac_double(_Fp2, pt)
+
+
+def g2_add(p1, p2):
+    return jac_add(_Fp2, p1, p2)
+
+
+def _digits(zbits: torch.Tensor) -> torch.Tensor:
+    """(N, 2) int32 words of z -> (N, 32) int64 2-bit digits, LSB first."""
+    w = zbits.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(0, 32, 2, device=zbits.device)
+    return torch.cat([(w[:, :1] >> shifts) & 3, (w[:, 1:] >> shifts) & 3], -1)
+
+
+def scalar_mul_limbs(F, pt, zbits):
+    """[z]·pt per item, 2-bit windows (:782, :957): the table [0, P, 2P, 3P],
+    the top window's entry, then 31 times two doublings and one complete add
+    of the window's entry. pt (N, 3, ...) Jacobian."""
+    n = pt.shape[0]
+    p2 = jac_double(F, pt)
+    tab = torch.stack([torch.zeros_like(pt), pt, p2, jac_add(F, p2, pt)])
+    digits = _digits(zbits)
+    rows = torch.arange(n, device=pt.device)
+    acc = tab[digits[:, 31], rows]
+    for w in range(30, -1, -1):
+        acc = jac_add(F, jac_double(F, jac_double(F, acc)), tab[digits[:, w], rows])
+    return acc
+
+
+def segment_sums_limbs(F, pts, offsets):
+    """Affine sum of each segment [offsets[d], offsets[d+1]) of Jacobian
+    points (N, 3, ...): the segments padded with Z = 0 to one power-of-two
+    width and tree-summed with the complete add, then made affine."""
+    counts = (offsets[1:] - offsets[:-1]).tolist()
+    d, width = len(counts), 1
+    while width < max(counts + [1]):
+        width *= 2
+    grid = torch.zeros((d, width) + pts.shape[1:], dtype=pts.dtype, device=pts.device)
+    for i, (start, count) in enumerate(zip(offsets[:-1].tolist(), counts)):
+        grid[i, :count] = pts[start:start + count]
+    while grid.shape[1] > 1:
+        grid = jac_add(F, grid[:, 0::2], grid[:, 1::2])
+    return jac_to_affine(F, grid[:, 0])
+
+
+# --- kernel wrappers (words) -----------------------------------------------------
+
+
+def _check(name, t, tail):
+    if t.dtype != torch.int32 or tuple(t.shape[1:]) != tail or t.dim() != 1 + len(tail):
+        raise ValueError(f"{name} takes (N, {', '.join(map(str, tail))}) int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+    return t.contiguous()
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def rlc_ladders_plain(p, q, zbits, affine_g1=True):
+    """Plain version of K9 (see `rlc_ladders`)."""
+    g1 = g2 = None
+    if p is not None:
+        pl = to_limbs(p)
+        jac = torch.cat([pl, fp.one_like(pl[:, :1])], 1)
+        g1 = scalar_mul_limbs(_Fp, jac, zbits)
+        g1 = to_words(jac_to_affine(_Fp, g1) if affine_g1 else g1)
+    if q is not None:
+        ql = to_limbs(q)
+        jac = torch.cat([ql, f2_one_like(ql[:, :1])], 1)
+        g2 = to_words(scalar_mul_limbs(_Fp2, jac, zbits))
+    return g1, g2
+
+
+def rlc_ladders(p, q, zbits, affine_g1=True):
+    """K9: [z_i]·p_i over G1 and [z_i]·q_i over G2 (either may be None),
+    affine points in, (N, 2) int32 scalar words. Returns (G1 (N, 2, 12)
+    affine if `affine_g1` else (N, 3, 12) Jacobian, G2 (N, 3, 2, 12)
+    Jacobian). Kernel on CUDA, plain on the CPU."""
+    zbits = _check("rlc_ladders zbits", zbits, (2,))
+    n = zbits.shape[0]
+    if p is not None:
+        p = _check("rlc_ladders p", p, (2, NWORDS))
+    if q is not None:
+        q = _check("rlc_ladders q", q, (2, 2, NWORDS))
+    for t in (p, q):
+        if t is not None and (t.shape[0] != n or t.device != zbits.device):
+            raise ValueError("rlc_ladders: points and zbits differ in count or device")
+    if is_cpu(zbits):
+        return rlc_ladders_plain(p, q, zbits, affine_g1)
+    g1 = None if p is None else torch.empty((n, 2 if affine_g1 else 3, NWORDS),
+                                             dtype=torch.int32, device=zbits.device)
+    g2 = None if q is None else torch.empty((n, 3, 2, NWORDS), dtype=torch.int32,
+                                             device=zbits.device)
+    fn = build.entry("rlc", "rlc_ladders", 5, 3)
+    build.count_launch("rlc_ladders")
+    build.check(fn(_ptr(p), _ptr(q), zbits.data_ptr(), _ptr(g1), _ptr(g2), n,
+                   int(p is not None), int(q is not None), int(affine_g1),
+                   build.stream_ptr(zbits)), "rlc_ladders")
+    return g1, g2
+
+
+def point_sums_plain(pts, offsets):
+    """Plain version of K10 (see `point_sums`)."""
+    F = _Fp if pts.dim() == 3 else _Fp2
+    return to_words(segment_sums_limbs(F, to_limbs(pts), offsets.cpu()))
+
+
+def point_sums(pts, offsets):
+    """K10: the affine sum of each segment [offsets[d], offsets[d+1]) of
+    Jacobian points, G1 (N, 3, 12) -> (D, 2, 12) or G2 (N, 3, 2, 12) ->
+    (D, 2, 2, 12). An empty segment sums to infinity and comes out (0, 0).
+    `offsets` (D + 1,) int64 on the points' device. Kernel on CUDA, plain on
+    the CPU."""
+    g2 = pts.dim() == 4
+    pts = _check("point_sums", pts, (3, 2, NWORDS) if g2 else (3, NWORDS))
+    if offsets.dtype != torch.int64 or offsets.dim() != 1 or offsets.device != pts.device:
+        raise ValueError("point_sums: offsets must be (D + 1,) int64 on the points' device")
+    if is_cpu(pts):
+        return point_sums_plain(pts, offsets)
+    offsets = offsets.contiguous()
+    d = offsets.shape[0] - 1
+    out = torch.empty((d, 2) + pts.shape[2:], dtype=torch.int32, device=pts.device)
+    fn = build.entry("rlc", "point_sums", 3, 1)
+    build.count_launch("point_sums")
+    build.check(fn(pts.data_ptr(), offsets.data_ptr(), out.data_ptr(), d, int(g2),
+                   build.stream_ptr(pts)), "point_sums")
+    return out
+
+
+def miller_loop_plain(q, p):
+    """Plain version of K11 (see `miller_loop`)."""
+    f = miller_loop_limbs(to_limbs(q), to_limbs(p))
+    return to_words(f).reshape(-1, 12, NWORDS)
+
+
+def miller_loop(q, p):
+    """K11: f_{|x|,Q}(P) conjugated, per pair: Q (B, 2, 2, 12) affine on the
+    twist, P (B, 2, 12) affine -> (B, 12, 12). Kernel on CUDA, plain on the
+    CPU."""
+    global miller_loop_items
+    q = _check("miller_loop q", q, (2, 2, NWORDS))
+    p = _check("miller_loop p", p, (2, NWORDS))
+    if q.shape[0] != p.shape[0] or q.device != p.device:
+        raise ValueError("miller_loop: Q and P differ in count or device")
+    miller_loop_items += q.shape[0]
+    if is_cpu(q):
+        return miller_loop_plain(q, p)
+    out = torch.empty((q.shape[0], 12, NWORDS), dtype=torch.int32, device=q.device)
+    fn = build.entry("pairing", "miller_loop", 3)
+    build.count_launch("miller_loop")
+    build.check(fn(q.data_ptr(), p.data_ptr(), out.data_ptr(), q.shape[0],
+                   build.stream_ptr(q)), "miller_loop")
+    return out
+
+
+def stack_limit() -> int:
+    """The card's per-thread stack limit in bytes, first raised to what the
+    BLS kernels need (csrc/stack.cuh), as every K9-K12 entry does; launches
+    nothing."""
+    import ctypes
+
+    out = ctypes.c_longlong(0)
+    build.check(build.entry("pairing", "bls_stack_limit", 1)(ctypes.addressof(out), 0, None),
+                "bls_stack_limit")
+    return out.value
+
+
+def _f12_limbs(m):
+    return to_limbs(m).reshape(*m.shape[:-2], 6, 2, NLIMBS)
+
+
+def _f12_words(f):
+    return to_words(f).reshape(*f.shape[:-3], 12, NWORDS)
+
+
+def final_exp_batch_plain(m1, m2=None):
+    """Plain version of K12's batch mode (see `final_exp_batch`)."""
+    f = _f12_limbs(m1)
+    if m2 is not None:
+        f = f12_mul(f, _f12_limbs(m2))
+    cube = final_exponentiation_limbs(f)
+    return _f12_words(cube), f12_is_one(cube)
+
+
+def final_exp_tail_plain(m, extra):
+    """Plain version of K12's tail mode (see `final_exp_tail`)."""
+    f = _f12_limbs(torch.cat([m, extra[None]]))
+    while f.shape[0] > 1:  # the kernel's pairing: i with i + ceil(n/2)
+        n, half = f.shape[0], (f.shape[0] + 1) // 2
+        f = torch.cat([f12_mul(f[:n - half], f[half:]), f[n - half:half]])
+    cube = final_exponentiation_limbs(f[0])
+    return _f12_words(cube), f12_is_one(cube)
+
+
+def _final_exp(m1, m2, mode):
+    """Launch K12: mode 1 (batch) over the items of m1 (times m2), mode 0
+    (tail) over the product of all of m1's rows, which it overwrites."""
+    b = m1.shape[0]
+    out = torch.empty((b if mode == 1 else 1, 12, NWORDS), dtype=torch.int32, device=m1.device)
+    ok = torch.empty(out.shape[0], dtype=torch.int32, device=m1.device)
+    fn = build.entry("pairing", "final_exp", 4, 1)
+    build.count_launch("final_exp")
+    build.check(fn(m1.data_ptr(), _ptr(m2), out.data_ptr(), ok.data_ptr(), b, mode,
+                   build.stream_ptr(m1)), "final_exp")
+    return out, ok != 0
+
+
+def final_exp_batch(m1, m2=None):
+    """K12, batch mode: per item the final exponentiation of m1 (times m2
+    where given), (B, 12, 12) -> (the cube of the reduced pairing (B, 12,
+    12), is_one (B,) bool). Kernel on CUDA, plain on the CPU."""
+    m1 = _check("final_exp_batch", m1, (12, NWORDS))
+    if m2 is not None:
+        m2 = _check("final_exp_batch m2", m2, (12, NWORDS))
+        if m2.shape != m1.shape or m2.device != m1.device:
+            raise ValueError("final_exp_batch: m1 and m2 differ in shape or device")
+    if is_cpu(m1):
+        return final_exp_batch_plain(m1, m2)
+    return _final_exp(m1, m2, 1)
+
+
+def final_exp_tail(m, extra):
+    """K12, tail mode: the product of the B Miller values m (B, 12, 12) and
+    `extra` (12, 12), then one final exponentiation -> (cube (12, 12),
+    is_one 0-d bool). One block tree-multiplies, one thread exponentiates.
+    Kernel on CUDA, plain on the CPU."""
+    m = _check("final_exp_tail", m, (12, NWORDS))
+    if extra.dtype != torch.int32 or tuple(extra.shape) != (12, NWORDS) \
+            or extra.device != m.device:
+        raise ValueError("final_exp_tail: extra must be (12, 12) int32 on m's device")
+    if is_cpu(m):
+        return final_exp_tail_plain(m, extra)
+    out, ok = _final_exp(torch.cat([m, extra[None]]), None, 0)
+    return out[0], ok[0]
+
+
+# --- pairings and the randomized batch check (words) ------------------------------
+
+
+def neg_g1_words(device) -> torch.Tensor:
+    return g1_to_words([NEG_G1])[0].to(device)
+
+
+def pairing_cube_batch(q, p):
+    """e(P, Q)^3 per pair (the JAX package's device-canonical pairing)."""
+    return final_exp_batch(miller_loop(q, p))[0]
+
+
+def pairing_check_batch(q1, p1, q2, p2):
+    """Per item e(P1, Q1)·e(P2, Q2) == 1: one Miller launch over the 2B pairs,
+    one final exponentiation an item. Returns (B,) bool."""
+    b = q1.shape[0]
+    m = miller_loop(torch.cat([q1, q2]), torch.cat([p1, p2]))
+    return final_exp_batch(m[:b], m[b:])[1]
+
+
+def rlc_randomize_g1(p, zbits):
+    """Stage 1: [z_i]·P_i, affine out (K9, G1 only)."""
+    return rlc_ladders(p, None, zbits)[0]
+
+
+def rlc_collapse_g2(q2, zbits):
+    """Stage 2: the bilinearity collapse sum_i [z_i]·sig_i, affine out
+    (K9, G2 only, then K10 over one segment)."""
+    zsig = rlc_ladders(None, q2, zbits)[1]
+    return point_sums(zsig, _whole(zsig))[0]
+
+
+def _whole(pts):
+    return torch.tensor([0, pts.shape[0]], dtype=torch.int64, device=pts.device)
+
+
+def segment_offsets(seg_ids, num_segments):
+    """(order, offsets): a stable order that groups the items by segment and
+    the (D + 1,) int64 segment bounds in it (glue)."""
+    order = torch.sort(seg_ids.to(torch.int64), stable=True).indices
+    counts = torch.bincount(seg_ids.to(torch.int64), minlength=num_segments)[:num_segments]
+    return order, torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+
+
+def g1_segment_sum(pts, seg_ids, num_segments):
+    """Affine sum of the Jacobian G1 points of each segment (K10): out[d] =
+    sum over i with seg_ids[i] == d; an empty segment gives (0, 0), the
+    affine image of infinity (:1172)."""
+    order, offsets = segment_offsets(seg_ids, num_segments)
+    return point_sums(pts[order], offsets)
+
+
+def rlc_collapse_g1_by_message(p, zbits, seg_ids, num_segments):
+    """Stage 1, grouped: [z_i]·pk_i (K9, Jacobian), then the sum of each
+    message's segment (K10) -> (D, 2, 12) affine (:1195)."""
+    return g1_segment_sum(rlc_ladders(p, None, zbits, affine_g1=False)[0], seg_ids,
+                          num_segments)
+
+
+def rlc_miller_loop_count(*millers) -> int:
+    """Miller loops a set of stage outputs represents: the leading dim of
+    each batched Fp12 (1 for a single one)."""
+    return sum(int(m.shape[0]) if m.dim() == 3 else 1 for m in millers)
+
+
+def rlc_tail(m1, m2_single):
+    """Stage 3: the product of the batched Miller values with the single
+    one, one shared final exponentiation, is_one (K12 tail mode)."""
+    return final_exp_tail(m1, m2_single)[1]
+
+
+def pairing_check_rlc(q1, p1, q2, zbits, seg_ids=None):
+    """Randomized batch check with one shared final exponentiation (:1080):
+
+        prod_i e(z_i·P1_i, Q1_i) · e(-G1, sum_i z_i·Q2_i) == 1
+
+    the second pairing of every item being e(-G1, sig_i), which the BLS
+    checks always are (JAX's p2_is_neg_g1=True). Without `seg_ids`: Q1
+    (N, 2, 2, 12), K9 (G1 affine and G2), K10 (the G2 collapse), one K11
+    over N + 1 pairs, K12's tail. With `seg_ids` (N,) int (the grouped
+    path): Q1 holds the D distinct H(m) (D, 2, 2, 12), the G1 ladders stay
+    Jacobian and K10 sums each message's segment, so K11 runs D + 1 Miller
+    loops. Every segment needs a member, and a batch with an empty segment
+    fails: its sum is infinity, whose affine image (0, 0) gives a Miller
+    value in Fp4 that the final exponentiation maps to 1, so the product
+    alone would not fail (the JAX function, :1120-1125, returns that
+    product); the segment counts decide it here. Returns a 0-d bool."""
+    members = None
+    if seg_ids is None:
+        a1, zsig = rlc_ladders(p1, q2, zbits, affine_g1=True)
+    else:
+        z1, zsig = rlc_ladders(p1, q2, zbits, affine_g1=False)
+        order, offsets = segment_offsets(seg_ids, q1.shape[0])
+        a1 = point_sums(z1[order], offsets)
+        members = (offsets[1:] > offsets[:-1]).all()
+    aq = point_sums(zsig, _whole(zsig))
+    m = miller_loop(torch.cat([q1, aq]), torch.cat([a1, neg_g1_words(a1.device)[None]]))
+    ok = rlc_tail(m[:-1], m[-1])
+    return ok if members is None else ok & members
+
+
+# --- the kernels' constants -------------------------------------------------------
+
+
+def cuda_constants_header() -> str:
+    """The text of csrc/bls_constants.cuh, generated from these constants (a
+    test holds the committed file equal to it)."""
+    def words(x):
+        return "{" + ", ".join(f"0x{int(w):08x}u" for w in fp.int_to_words(x)) + "}"
+
+    def f2_rows(gs):
+        return ",\n    ".join("{" + words(fp.to_mont(g[0])) + ", " + words(fp.to_mont(g[1])) + "}"
+                              for g in gs)
+
+    return f"""// Generated by consensus_specs_tpu_torch.ops.bls12.cuda_constants_header();
+// a test holds this file equal to its output. Field values in Montgomery form
+// (R = 2^384), twelve little-endian 32-bit words each.
+#pragma once
+#include <cstdint>
+
+__device__ __constant__ uint32_t FP_P[12] = {words(P)};
+__device__ __constant__ uint32_t FP_ONE[12] = {words(fp.R_MOD_P)};
+__device__ __constant__ uint32_t FP_R2[12] = {words(fp.R2_MOD_P)};
+// exponents (plain integers): p - 2 (inverse), (p + 1) / 4 (square root)
+__device__ __constant__ uint32_t FP_EXP_INV[12] = {words(P - 2)};
+__device__ __constant__ uint32_t FP_EXP_SQRT[12] = {words((P + 1) // 4)};
+#define FP_N0 0x{fp.N0_32:08x}u  // -p^-1 mod 2^32
+#define X_ABS 0x{ABS_X:016x}ull  // |x|, the BLS parameter
+// gamma1^k = xi^(k(p-1)/6) and gamma2^k = conj(gamma1^k)·gamma1^k, k = 0..5
+__device__ __constant__ uint32_t GAMMA1[6][2][12] = {{
+    {f2_rows(GAMMA1)}}};
+__device__ __constant__ uint32_t GAMMA2[6][2][12] = {{
+    {f2_rows(GAMMA2)}}};
+"""

@@ -6,14 +6,16 @@ Builds the kernels, puts a synthetic altair-mainnet registry of N
 validators on the card (default 2**20, seed 0, from epoch 250), warms the
 resident loop up and builds its Merkle cache, then profiles four windows
 with torch.profiler: K resident epochs (default 8), one `field_roots`, one
-epoch followed by the `device_roots()` refresh of the cache, and one
-sync-committee sample (the rotation's work) on the current columns. For
-each window it prints the
+epoch followed by the `device_roots()` refresh of the cache, one
+sync-committee sample (the rotation's work) on the current columns, and
+the BLS flushes of one block (131 checks) and of one slot's gossip
+aggregates (1024 checks), from `crypto/bls_synthetic.flush_inputs(0)`
+after one warm-up flush each. For each window it prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
-activities that took the most device time. A last window runs the K
-epochs under cProfile and prints the host functions with the most own
-time. Needs a card; without one it exits nonzero.
+activities that took the most device time. Two last windows run the K
+epochs and the gossip flush under cProfile and print the host functions
+with the most own time. Needs a card; without one it exits nonzero.
 """
 from __future__ import annotations
 
@@ -53,6 +55,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: needs an NVIDIA card", file=sys.stderr)
         return 2
+    from .crypto import bls_synthetic, bls_torch
     from .engine.resident import ResidentEpochLoop
     from .engine.state import EpochConfig
     from .engine.sync_committee import sync_committee_for_state
@@ -84,11 +87,28 @@ def main(argv=None) -> int:
         period = cfg.epochs_per_sync_committee_period
         sync_committee_for_state(cfg, loop.state, (loop.epoch // period + 1) * period)
 
+    block, gossip, _ = bls_synthetic.flush_inputs(0)
+
+    def flush(checks):
+        if not bls_torch.run_checks(checks, dev).all():
+            raise RuntimeError("a valid synthetic batch failed its check")
+
+    def block_flush():
+        flush(block)
+
+    def gossip_flush():
+        flush(gossip)
+
+    block_flush()
+    gossip_flush()
+
     print(f"card: {torch.cuda.get_device_name(0)}; N={args.n}")
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
                       ("field_roots", lambda: loop.field_roots(static01)),
                       ("one epoch + device_roots refresh", refresh),
-                      ("sync-committee sample", rotation)):
+                      ("sync-committee sample", rotation),
+                      (f"BLS block flush ({len(block)} checks)", block_flush),
+                      (f"BLS gossip flush ({len(gossip)} checks)", gossip_flush)):
         wall_us, rows = _profile(fn, torch)
         device_us = sum(r[2] for r in rows)
         if not rows:
@@ -104,16 +124,18 @@ def main(argv=None) -> int:
     import io
     import pstats
 
-    torch.cuda.synchronize()
-    prof = cProfile.Profile()
-    prof.enable()
-    epochs()
-    torch.cuda.synchronize()
-    prof.disable()
-    out = io.StringIO()
-    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
-    print(f"host, {args.epochs} resident epochs under cProfile (own time):")
-    print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
+    for label, fn in ((f"{args.epochs} resident epochs", epochs),
+                      ("the BLS gossip flush", gossip_flush)):
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        fn()
+        torch.cuda.synchronize()
+        prof.disable()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
+        print(f"host, {label} under cProfile (own time):")
+        print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
     return 0
 
 

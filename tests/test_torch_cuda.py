@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 import torch
 
+from consensus_specs_tpu_torch.crypto import bls12_381 as bls_oracle
+from consensus_specs_tpu_torch.crypto import bls_torch
+from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
 from consensus_specs_tpu_torch.engine import epoch as tepoch
 from consensus_specs_tpu_torch.engine import incremental_root as tinc
 from consensus_specs_tpu_torch.engine import state_root as troot
@@ -28,6 +31,8 @@ from consensus_specs_tpu_torch.engine.synthetic import (
     synthetic_epoch_state_numpy,
 )
 from consensus_specs_tpu_torch.kernels import build
+from consensus_specs_tpu_torch.ops import bls12 as tbls
+from consensus_specs_tpu_torch.ops import fp as tfp
 from consensus_specs_tpu_torch.ops import sha256 as tsha
 from consensus_specs_tpu_torch.ops import shuffle as tshuffle
 from consensus_specs_tpu_torch.ops.sha256_host import words_to_bytes
@@ -266,3 +271,136 @@ def test_device_roots_on_card_match_field_roots(cuda):
             for key in troot.DEVICE_FIELDS:
                 assert torch.equal(roots[key], ref[key]), (count, key)
     assert branches[1] == "full" and loop.sync_committee_updates == 1
+
+
+# --- the BLS kernels (K8-K12) ---------------------------------------------------------
+
+
+def _counted(name):
+    """Context: the test body must launch kernel `name` exactly once."""
+    class _Count:
+        def __enter__(self):
+            self.before = build.LAUNCHES[name]
+
+        def __exit__(self, *exc):
+            torch.cuda.synchronize()
+            assert exc[0] is not None or build.LAUNCHES[name] == self.before + 1
+            return False
+    return _Count()
+
+
+def _bls_items(n, messages, seed):
+    """n (pk, H(m), sig) Montgomery words on the CPU over `messages` messages,
+    and the oracle's points."""
+    rng = np.random.default_rng(seed)
+    F1, F2 = bls_oracle.FP_FIELD, bls_oracle.FP2_FIELD
+    ks = [int(k) for k in rng.integers(1, 2**62, n, dtype=np.int64)]
+    hs = [hash_to_curve_g2(b"card %d" % (i % messages)) for i in range(n)]
+    pks = [bls_oracle.pt_to_affine(F1, bls_oracle.pt_mul(F1, bls_oracle.G1_GEN, k)) for k in ks]
+    sigs = [bls_oracle.pt_to_affine(F2, bls_oracle.pt_mul(F2, bls_oracle.pt_from_affine(F2, h), k))
+            for h, k in zip(hs, ks)]
+    return tbls.g1_to_words(pks), tbls.g2_to_words(hs), tbls.g2_to_words(sigs)
+
+
+@pytest.mark.parametrize("op", range(7))
+@pytest.mark.parametrize("m", [1, 130])
+def test_fp_ops_kernel_matches_plain(cuda, op, m):
+    rng = np.random.default_rng(op + m)
+    vals = [int.from_bytes(rng.bytes(48), "little") % tfp.P for _ in range(2 * m)]
+    vals[:2] = [0, tfp.P - 1] if m > 1 else vals[:2]
+    w = torch.from_numpy(tfp.ints_to_words(vals))
+    a, b = w[:m], w[m:]
+    binary = op in tfp._BINARY
+    with _counted("fp_ops"):
+        got = tfp.fp_ops(op, a.to(cuda), b.to(cuda) if binary else None)
+    assert torch.equal(got.cpu(), tfp.fp_ops_plain(op, a, b if binary else None))
+
+
+def test_to_mont_words_on_card(cuda):
+    vals = [0, 1, tfp.P - 1, 12345]
+    got = tfp.to_mont_words(torch.from_numpy(tfp.ints_to_words(vals)).to(cuda))
+    assert tfp.words_to_ints(got) == [tfp.to_mont(v) for v in vals]
+
+
+@pytest.mark.parametrize("affine", [True, False])
+def test_rlc_ladders_kernel_matches_plain(cuda, affine):
+    p, _, s = _bls_items(6, 6, 1)
+    zb = bls_torch.zbits_from_ints([0, 1, 2, 2**64 - 1, 2**32, 987654321987654321])
+    with _counted("rlc_ladders"):
+        got = tbls.rlc_ladders(p.to(cuda), s.to(cuda), zb.to(cuda), affine)
+    for g, w in zip(got, tbls.rlc_ladders_plain(p, s, zb, affine)):
+        assert torch.equal(g.cpu(), w)
+    g1_only = tbls.rlc_ladders(p.to(cuda), None, zb.to(cuda), affine)
+    assert g1_only[1] is None and torch.equal(g1_only[0], got[0])
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_point_sums_kernel_matches_plain(cuda, g2):
+    p, _, s = _bls_items(70, 70, 2)
+    zb = bls_torch.zbits_from_ints(list(range(1, 71)))
+    g1, g2j = tbls.rlc_ladders_plain(p, s, zb, affine_g1=False)
+    pts = g2j if g2 else g1
+    off = torch.tensor([0, 70] if g2 else [0, 3, 3, 68, 70])  # an empty segment, one of 65
+    with _counted("point_sums"):
+        got = tbls.point_sums(pts.to(cuda), off.to(cuda))
+    assert torch.equal(got.cpu(), tbls.point_sums_plain(pts, off))
+
+
+def test_miller_and_final_exp_kernels_match_plain(cuda):
+    p, q, s = _bls_items(5, 5, 3)
+    with _counted("miller_loop"):
+        m = tbls.miller_loop(q.to(cuda), p.to(cuda))
+    mp = tbls.miller_loop_plain(q, p)
+    assert torch.equal(m.cpu(), mp)
+    with _counted("final_exp"):
+        cube, ok = tbls.final_exp_batch(m[:2], m[2:4])
+    wc, wok = tbls.final_exp_batch_plain(mp[:2], mp[2:4])
+    assert torch.equal(cube.cpu(), wc) and torch.equal(ok.cpu(), wok)
+    with _counted("final_exp"):
+        cube, ok = tbls.final_exp_tail(m[:-1], m[-1])
+    wc, wok = tbls.final_exp_tail_plain(mp[:-1], mp[-1])
+    assert torch.equal(cube.cpu(), wc) and bool(ok) == bool(wok)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_pairing_check_rlc_on_card(cuda, grouped):
+    """Both randomized-check paths on the card: a valid batch passes, a bad
+    signature fails, an empty segment fails; the batch check flags the bad
+    item."""
+    p, q, s = _bls_items(12, 3 if grouped else 12, 4)
+    zb = bls_torch.zbits_from_ints(np.random.default_rng(5).integers(1, 2**63, 12))
+    seg = torch.tensor([i % 3 for i in range(12)], device=cuda) if grouped else None
+    reps = q[:3] if grouped else q
+    args = (reps.to(cuda), p.to(cuda))
+    assert bool(tbls.pairing_check_rlc(*args, s.to(cuda), zb.to(cuda), seg))
+    bad = s.clone()
+    bad[7] = s[6]
+    assert not bool(tbls.pairing_check_rlc(*args, bad.to(cuda), zb.to(cuda), seg))
+    if grouped:
+        extra = torch.cat([reps, q[:1]]).to(cuda)  # a fourth message, no member
+        assert not bool(tbls.pairing_check_rlc(extra, p.to(cuda), s.to(cuda), zb.to(cuda), seg))
+    neg = tbls.neg_g1_words(cuda)[None].expand(12, 2, 12).contiguous()
+    ok = tbls.pairing_check_batch(q.to(cuda), p.to(cuda), bad.to(cuda), neg)
+    assert ok.cpu().tolist() == [i != 7 for i in range(12)]
+
+
+def test_run_checks_on_card(cuda):
+    """The flush on the card: 20 checks take the randomized path; one bad
+    signature is attributed to its index."""
+    p, q, s = _bls_items(20, 20, 6)
+    pts = tbls.affine_from_words(p, False)
+    hs = tbls.affine_from_words(q, True)
+    sigs = tbls.affine_from_words(s, True)
+    checks = [bls_torch.QueuedCheck(a, h, bls_torch._NEG_G1, g) for a, h, g in zip(pts, hs, sigs)]
+    assert bls_torch.run_checks(checks, cuda).all()
+    assert bls_torch.LAST_FLUSH["path"] == "rlc"
+    checks[13] = bls_torch.QueuedCheck(pts[13], hs[13], bls_torch._NEG_G1, sigs[12])
+    assert np.flatnonzero(~bls_torch.run_checks(checks, cuda)).tolist() == [13]
+
+
+def test_bls_stack_limit_covers_the_kernels(cuda):
+    """The stack limit the BLS entries set holds K12's 10,160 bytes of
+    cumulative stack (ptxas) and is never lowered."""
+    limit = tbls.stack_limit()
+    assert 10_160 <= limit < 16_384
+    assert tbls.stack_limit() == limit
