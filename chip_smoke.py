@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the epoch and BLS paths on one NVIDIA card.
+"""Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation and KZG
+paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -20,7 +21,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K8-K12 (the BLS field, ladders, point sums, Miller loop and final
    exponentiation) on 8 seeded items with the field's edge values, z = 1
    and 2^64 - 1 and an empty segment, and two pairing cubes against the
-   copied oracle;
+   copied oracle; K13 g1_msm on 8 items (64- and 255-bit scalars, windows 4
+   and 5, a zero scalar, 2^64 - 1, a repeated point, a P + (-P) pair) and
+   K14 g1_subgroup on 8 points (a pad and the on-curve (0, 2) outside the
+   subgroup);
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -43,6 +47,18 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    the card; with a bad signature it must raise). Inputs come from seed 0
    (`crypto/bls_synthetic.flush_inputs`, the port's copy of the
    pure-Python oracle);
+5b. the block's committee keys (`crypto/msm_synthetic.block_aggregate_inputs`,
+   seed 0: 128 attestation committees of 512 and the sync committee of 512,
+   66,048 keys as bytes), launch counts zeroed before each part and read
+   after it: cold (key caches cleared; every key decompressed on the host,
+   129 K14 and 129 K10 launches, each aggregate equal to the oracle's),
+   warm (the 128 attestation committees' 65,536 keys validated, no
+   committee aggregate: 128 K10 launches, no K14), hot (the committee cache:
+   no launch), the flush of the 129 checks, and through the shim the block
+   with one key outside the subgroup, which must raise;
+5c. the KZG batch at 128 blobs (`msm_synthetic.kzg_inputs`, seed 0): the
+   sample batch (two K13 MSMs, one 2-pairing check) accepted, its twin with
+   one tampered value rejected, the 128 degree proofs accepted;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -51,7 +67,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    there too, at every shape the BLS path gives them (K8 at the block's
    and the gossip's M, K9 at N = 256 and 1,024, K10 on both G2 collapses
    and the 64 G1 segments, K11 at B = 257, 65 and 512, K12's tail at 257
-   and 65 and its batch at 256).
+   and 65 and its batch at 256); K13 at (128, 64) and (512, 255), K14 and
+   K10's aggregate over a 512-key committee, each bit-equal to its plain
+   version there, their least time from the cost functions' point
+   operations.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -84,6 +103,7 @@ N_SHUFFLE_CHECK = 65_537
 HBM_BYTES_PER_S = 3.35e12
 LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 BLS_KERNELS = ("fp_ops", "rlc_ladders", "point_sums", "miller_loop", "final_exp")
+MSM_KERNELS = ("g1_msm", "g1_subgroup")
 
 
 class SmokeFailure(RuntimeError):
@@ -290,6 +310,58 @@ def check_bls_kernels(dev, err: dict) -> None:
     print(f"check K8-K12: {n} items bit-equal to the plain versions (K8 all 7 ops with 0, 1, "
           f"p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty segment; K12 "
           f"batch, batch with m2, tail); 2 pairing cubes = oracle", flush=True)
+
+
+def check_msm_kernels(dev, err: dict) -> None:
+    """K13 and K14 each bit-equal to its plain version on the card at 8
+    items: K13 over 64- and 255-bit scalars at windows 4 and 5 with a zero
+    scalar, 2^64 - 1, a repeated point and a P + (-P) pair that cancels; K14
+    over 8 points with a pad (Z = 0) and the on-curve (0, 2) outside the
+    subgroup."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    F1 = oracle.FP_FIELD
+    rng = np.random.default_rng(5)
+    pts = [oracle.pt_to_affine(F1, oracle.pt_mul(F1, oracle.G1_GEN, int(k)))
+           for k in rng.integers(1, 2**62, 5, dtype=np.int64)]
+    pts += [pts[0], pts[1], (pts[1][0], (-pts[1][1]) % oracle.P)]  # repeat, then P + (-P)
+    jac = B._jacobian_words(pts, 0, dev)
+    for nbits in (64, 255):
+        sc = [int.from_bytes(rng.bytes(32), "little") % (1 << nbits) for _ in pts]
+        sc[:2] = [0, 2**64 - 1]
+        sc[7] = sc[6]  # the opposite pair cancels
+        words = B.scalar_words(sc, nbits).to(dev)
+        for window in (4, 5):
+            got, plain = B.g1_msm(jac, words, nbits, window), B.g1_msm_plain(jac, words, nbits,
+                                                                               window)
+            err["g1_msm"] = max(err["g1_msm"], max_abs_err(got, plain))
+            require(torch.equal(got, plain), f"K13 g1_msm ({nbits} bits, w={window}) differs "
+                    "from its plain version")
+            want = B._affine_or_none(plain)
+            host = None
+            for p, s in zip(pts, sc):
+                t = oracle.pt_mul(F1, oracle.pt_from_affine(F1, p), s)
+                host = oracle.pt_add(F1, host, t)
+            require(want == oracle.pt_to_affine(F1, host), "K13's plain version != the oracle")
+    # P + (-P) alone, padded as g1_msm_device pads: the identity, (0, 0)
+    cancel = B._jacobian_words(pts[6:] + [oracle.G1_GEN_AFF] * 6, 0, dev)
+    words = B.scalar_words([2**64 - 1] * 2 + [0] * 6, 64).to(dev)
+    got, plain = B.g1_msm(cancel, words, 64), B.g1_msm_plain(cancel, words, 64)
+    err["g1_msm"] = max(err["g1_msm"], max_abs_err(got, plain))
+    require(torch.equal(got, plain) and B._affine_or_none(plain) is None,
+            "K13 g1_msm on P + (-P) differs from its plain version or is not the identity")
+    sub = torch.cat([jac[:6], B._jacobian_words([(0, 2)], 1, dev)])
+    got, plain = B.g1_subgroup_check(sub), B.g1_subgroup_check_plain(sub)
+    err["g1_subgroup"] = max_abs_err(got.int(), plain.int())
+    require(torch.equal(got, plain) and plain.tolist() == [True] * 6 + [False, True],
+            f"K14 g1_subgroup differs from its plain version: {got.tolist()}")
+    print("check K13-K14: g1_msm bit-equal to its plain version at 8 items (64 and 255 bits, "
+          "w = 4 and 5, a zero scalar, 2^64 - 1, a repeated point, P + (-P)) and = the oracle, "
+          "and on P + (-P) alone (the identity); g1_subgroup bit-equal with a pad and (0, 2)",
+          flush=True)
 
 
 def timed(fn):
@@ -526,6 +598,193 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
     return rows
 
 
+def msm_main_path(dev, agg_in, kzg_in) -> tuple:
+    """The block's key aggregation (cold, warm, hot, its flush, a block with a
+    key outside the subgroup through the shim) and the KZG batch at 128 blobs
+    (samples, a tampered twin, degree proofs): (metrics, launches by part).
+    Launch counts are zeroed just before each part and read just after."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls, bls_torch, kzg_batch
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.kernels import build
+
+    calls, aggregates = agg_in["calls"], agg_in["aggregates"]
+    n_att = len(calls) - 1
+    out, launches = {}, {}
+
+    def part(name, fn):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        res, ms, wall = timed(fn)
+        launches[name] = {k: v for k, v in build.LAUNCHES.items() if v}
+        return res, ms, wall
+
+    def aggregate(subset):
+        return [bls_torch.make_fast_aggregate_check(pks, msg, sig, device=dev)
+                for pks, msg, sig in subset]
+
+    bls_torch.clear_caches()
+    checked0 = bls_torch.pubkey_subgroup_device_total
+    wall0 = time.perf_counter()
+    for _, _, sig in calls:  # signatures decompressed before: the key work is timed
+        bls_torch.g2_from_bytes(sig)
+    out["signature_decompress_wall_ms"] = 1e3 * (time.perf_counter() - wall0)
+    checks, out["agg_block_cold_ms"], out["agg_block_cold_wall_ms"] = part(
+        "cold", lambda: aggregate(calls))
+    require(all(c is not None for c in checks)
+            and [c.p1 for c in checks] == aggregates, "cold aggregation != the oracle's sums")
+    require(launches["cold"] == {"g1_subgroup": len(calls), "point_sums": len(calls)},
+            f"cold aggregation launched {launches['cold']}")
+    out["cold_keys_checked"] = bls_torch.pubkey_subgroup_device_total - checked0
+    require(out["cold_keys_checked"] == sum(len(c[0]) for c in calls),
+            "cold aggregation did not check every key once")
+    # warm: the attestations' 65,536 keys validated, no committee aggregate
+    bls_torch._PK_VALIDATED.clear()
+    for pks, _, _ in calls[:n_att]:
+        bls_torch._PK_VALIDATED.update((pk, agg_in["keys"][pk]) for pk in pks)
+    require(len(bls_torch._PK_VALIDATED) == bls_torch._PK_VALIDATED_MAX, "warm key set size")
+    bls_torch._AGG_CACHE.clear()
+    warm, out["agg_block_warm_ms"], out["agg_block_warm_wall_ms"] = part(
+        "warm", lambda: aggregate(calls[:n_att]))
+    require([c.p1 for c in warm] == aggregates[:n_att]
+            and launches["warm"] == {"point_sums": n_att},
+            f"warm aggregation launched {launches['warm']}")
+    hot, out["agg_block_hot_ms"], out["agg_block_hot_wall_ms"] = part(
+        "hot", lambda: aggregate(calls[:n_att]))
+    require([c.p1 for c in hot] == aggregates[:n_att] and launches["hot"] == {},
+            f"hot aggregation launched {launches['hot']}")
+    ok, out["agg_block_flush_ms"], out["agg_block_flush_wall_ms"] = part(
+        "flush", lambda: bls_torch.run_checks(checks, dev))
+    require(ok.all() and bls_torch.LAST_FLUSH["path"] == "rlc", "the block's 129 checks failed")
+    bls.use_device(dev)
+    bad_calls = [list(c) for c in calls]
+    at = len(calls) // 25
+    bad_calls[at][0] = list(bad_calls[at][0])
+    bad_calls[at][0][17] = oracle.g1_to_bytes((0, 2))  # on the curve, outside the subgroup
+    raised = False
+    try:
+        with bls.deferred_verification():
+            for pks, msg, sig in bad_calls:
+                bls.FastAggregateVerify(pks, msg, sig)
+    except bls.BLSVerificationError as e:
+        raised = f"[{at}]" in str(e)
+    require(raised, f"the shim's block with a key outside the subgroup must raise for call {at}")
+    print(f"block aggregation: {len(calls)} calls, {sum(len(c[0]) for c in calls)} keys; "
+          f"cold {launches['cold']}, warm {launches['warm']}, hot {launches['hot']}; every "
+          f"aggregate = the oracle's; the flush passed; a key outside the subgroup raised",
+          flush=True)
+
+    setup, samples = kzg_in["setup"], kzg_in["samples"]
+    ok, out["kzg_batch_128_ms"], out["kzg_batch_128_wall_ms"] = part(
+        "kzg_samples", lambda: kzg_batch.batch_verify_samples(setup, samples, device=dev))
+    require(ok and {k: launches["kzg_samples"].get(k) for k in ("g1_msm", "miller_loop",
+                                                                "final_exp")}
+            == {"g1_msm": 2, "miller_loop": 1, "final_exp": 1},
+            f"the KZG sample batch failed or missed the card: {launches['kzg_samples']}")
+    bad = [list(it) for it in samples]
+    at = len(bad) * 3 // 5
+    bad[at][2] = list(bad[at][2])
+    bad[at][2][-1] = (bad[at][2][-1] + 1) % kzg_batch.MODULUS
+    ok, out["kzg_tampered_ms"], _ = part(
+        "kzg_tampered",
+        lambda: kzg_batch.batch_verify_samples(setup, [tuple(it) for it in bad], device=dev))
+    require(not ok and launches["kzg_tampered"].get("g1_msm") == 2,
+            "the tampered KZG batch was accepted")
+    ok, out["kzg_degree_128_ms"], out["kzg_degree_128_wall_ms"] = part(
+        "kzg_degree", lambda: kzg_batch.batch_verify_degree_proofs(
+            setup, kzg_in["degree_proofs"], kzg_in["points_count"], device=dev))
+    require(ok and launches["kzg_degree"].get("g1_msm") == 2, "the degree-proof batch failed")
+    print(f"kzg batch: {len(samples)} samples accepted ({launches['kzg_samples']}), a tampered "
+          f"value rejected, {len(kzg_in['degree_proofs'])} degree proofs accepted", flush=True)
+    return out, launches
+
+
+def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
+    """K13, K14 and K10's aggregate at the shapes of the paths above: K13 at
+    (128, 64) and (512, 255), the KZG batch's two buckets; K14 and K10 over
+    one 512-key committee. Each held bit-equal to its plain version there,
+    timed beside it; the least time from the point operations the inputs
+    need (K13: only the items and window digits that are not zero, so the
+    pads count nothing) times the plain version's Fp products an operation
+    (one double, one complete add of distinct points) times K8's
+    instructions a product. Returns (the K13 and K14 rows, K10's aggregate shape)."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto import kzg_batch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp
+
+    lim = B.to_limbs(B._jacobian_words([oracle.G1_GEN_AFF, agg_in["aggregates"][0]], 0, "cpu"))
+    m0 = fp.plain_muls
+    B.g1_double(lim[:1])
+    per_double = fp.plain_muls - m0
+    B.g1_add(lim[:1], lim[1:])
+    per_add = fp.plain_muls - m0 - per_double
+    rng = np.random.default_rng(6)
+    samples = kzg_in["samples"]
+    proofs = [kzg_batch._aff(it[3]) for it in samples]
+    side64 = (proofs, [int(v) for v in rng.integers(1, 2**63, len(proofs), dtype=np.int64)])
+    folded = ([kzg_batch._neg(p) for p in proofs]
+              + [kzg_batch._neg(kzg_batch._aff(it[0])) for it in samples]
+              + [kzg_batch._aff(g) for g in kzg_in["setup"].g1[:len(samples[0][2])]])
+    side255 = (folded, [int.from_bytes(rng.bytes(32), "little") % oracle.R for _ in folded])
+
+    def msm_args(points, scalars, nbits):
+        b = B._msm_pow2_pad(len(points))
+        pad = b - len(points)
+        return (B._jacobian_words(points + [oracle.G1_GEN_AFF] * pad, 0, dev),
+                B.scalar_words(scalars + [0] * pad, nbits).to(dev), nbits)
+
+    keys = B._jacobian_words([agg_in["keys"][pk] for pk in agg_in["calls"][0][0]], 0, dev)
+
+    def ops_bound(doubles, adds):
+        muls = doubles * per_double + adds * per_add
+        return dict(point_ops=doubles + adds, fp_muls=muls,
+                    bound_ms=1e3 * muls * sass_mul / LANE_INSTR_PER_S, bound_by="operations")
+
+    shapes = []
+    for label, (pts, sc) in (("n=128 nbits=64", side64), ("n=512 nbits=255", side255)):
+        a = msm_args(pts, sc, 64 if "64" in label else 255)
+        c = B.g1_msm_data_op_counts(a[1], a[2])
+        shapes.append(("g1_msm", label, lambda a=a: B.g1_msm(*a), lambda a=a: B.g1_msm_plain(*a),
+                       ops_bound(c["doubles"], c["adds"])))
+    c = B.g1_ladder_op_counts(keys.shape[0], 255)
+    shapes.append(("g1_subgroup", f"n={keys.shape[0]}", lambda: B.g1_subgroup_check(keys),
+                   lambda: B.g1_subgroup_check_plain(keys), ops_bound(c["doubles"], c["adds"])))
+    shapes.append(("point_sums", f"G1 aggregate n={keys.shape[0]} D=1",
+                   lambda: B.g1_aggregate(keys),
+                   lambda: B.point_sums_plain(keys, torch.tensor([0, keys.shape[0]]))[0],
+                   ops_bound(0, keys.shape[0] - 1)))
+    rows = {}
+    with Aside():
+        for name, label, kernel, plain, bound in shapes:
+            want, plain_ms, _ = timed(plain)
+            got = kernel()
+            got, want = got.int(), want.to(got.device).int()
+            err[name] = max(err[name], max_abs_err(got, want))
+            require(torch.equal(got, want), f"{name} ({label}) differs from its plain version "
+                    "at the main path's shape")
+            ms = time_ms(kernel, 3, warmup=1)
+            rows.setdefault(name, []).append(dict(shape=label, ms=ms, plain_ms=plain_ms,
+                                                  **bound))
+            print(f"kernel {name} ({label}): ms={ms:.5f} bound_ms={bound['bound_ms']:.6f} "
+                  f"(operations: {bound['point_ops']} point ops, {bound['fp_muls']} Fp "
+                  f"products) plain_ms={plain_ms:.3f}", flush=True)
+    out = []
+    for name, src, replaces in (
+            ("g1_msm", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1291"),
+            ("g1_subgroup", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1347")):
+        first, *more = rows[name]
+        out.append(dict(name=name, route="cuda", source=f"consensus_specs_tpu_torch/csrc/{src}",
+                        replaces=replaces, launches=launches[name], max_abs_err=err[name],
+                        bit_equal=err[name] == 0.0, library_ms=None,
+                        ms_over_bound=first["ms"] / first["bound_ms"], **first,
+                        **{r["shape"]: r for r in more}))
+    return out, rows["point_sums"][0]
+
+
 def main() -> int:
     import torch
 
@@ -534,7 +793,7 @@ def main() -> int:
               "an NVIDIA card", file=sys.stderr)
         return 2
 
-    from consensus_specs_tpu_torch.crypto import bls_synthetic
+    from consensus_specs_tpu_torch.crypto import bls_synthetic, msm_synthetic
     from consensus_specs_tpu_torch.engine import epoch as tepoch
     from consensus_specs_tpu_torch.engine import incremental_root as tinc
     from consensus_specs_tpu_torch.engine import state_root as troot
@@ -707,6 +966,7 @@ def main() -> int:
     print(f"bls stack: limit {stack['limit_bytes']} B a thread, {stack['reserved_bytes']} B of "
           f"device memory reserved by the driver", flush=True)
     check_bls_kernels(dev, err)
+    check_msm_kernels(dev, err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -776,7 +1036,8 @@ def main() -> int:
           f"launches={launches} max_memory_allocated={peak} (beside it the BLS stacks' "
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
-        require(count > 0 or name in BLS_KERNELS, f"the main path never launched {name}")
+        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS,
+                f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
             f"the main path must take both refresh branches, took {sorted(branches)}")
@@ -865,6 +1126,23 @@ def main() -> int:
     print("bls main path: " + " ".join(f"{k}={v:.4f}" for k, v in bls_out.items()
                                        if k.endswith("_ms"))
           + f" launches={ {k: bls_launches[k] for k in BLS_KERNELS} }", flush=True)
+
+    # 5b, 5c. the block's committee-key aggregation and the KZG batch at 128 blobs
+    t0 = time.perf_counter()
+    agg_in = msm_synthetic.block_aggregate_inputs(seed=0)
+    t1 = time.perf_counter()
+    kzg_in = msm_synthetic.kzg_inputs(seed=0)
+    print(f"msm inputs: {len(agg_in['calls'])} FastAggregateVerify calls over "
+          f"{len(agg_in['keys'])} keys in {t1 - t0:.1f} s, {len(kzg_in['samples'])} KZG sample "
+          f"and degree-proof items in {time.perf_counter() - t1:.1f} s (host)", flush=True)
+    msm_out, msm_parts = msm_main_path(dev, agg_in, kzg_in)
+    msm_launches = {k: sum(part.get(k, 0) for name, part in msm_parts.items() if name != "flush")
+                    for k in build.LAUNCHES}
+    for name in MSM_KERNELS:
+        require(msm_launches[name] > 0, f"the aggregation and KZG paths never launched {name}")
+    print("msm main path: " + " ".join(f"{k}={v:.4f}" for k, v in msm_out.items()
+                                       if k.endswith("_ms"))
+          + f" launches={msm_parts}", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -983,8 +1261,13 @@ def main() -> int:
         row.update(route="cuda", launches=launches[row["name"]],
                    max_abs_err=err[row["name"]], bit_equal=err[row["name"]] == 0.0,
                    library_ms=None)
-    rows += bls_rows(dev, bls_in, bls_launches, err,
-                     sass_instructions("fp", "fp_ops_kernelILi0E"))
+    sass_mul = sass_instructions("fp", "fp_ops_kernelILi0E")
+    rows += bls_rows(dev, bls_in, bls_launches, err, sass_mul)
+    new_rows, aggregate_row = msm_rows(dev, agg_in, kzg_in, msm_launches, err, sass_mul)
+    for row in rows:
+        if row["name"] == "point_sums":
+            row[aggregate_row["shape"]] = dict(aggregate_row, launches=msm_launches["point_sums"])
+    rows += new_rows
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -997,7 +1280,7 @@ def main() -> int:
         "historical_batch_root": dict(ms=hist_ms, plain_ms=hist_plain_ms, hashes=hist_hashes,
                                       **bound(sass["sha256_64b"] * hist_hashes, 2 * 8192 * 32
                                               + 32))},
-        "bls_path": bls_out}))
+        "bls_path": bls_out, "msm_path": dict(msm_out, launches=msm_parts)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

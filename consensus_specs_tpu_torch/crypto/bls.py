@@ -8,9 +8,11 @@ flush at the outermost exit, raising BLSVerificationError if any check
 failed. The state is per thread and reentrant: inner contexts queue into the
 outer one, and an inner body that raises drops the checks it queued. Outside
 a deferral each call is checked at once. Verify and FastAggregateVerify run
-on the device (`bls_torch.run_checks`); AggregateVerify, one message per
-signer, runs on the host oracle, as the JAX package's BLS lane routes it.
-Sign, SkToPk, Aggregate and AggregatePKs are the host oracle's.
+on the device (`bls_torch.run_checks`), a FastAggregateVerify's committee of
+DEVICE_AGGREGATE_MIN or more keys summed there first; AggregateVerify, one
+message per signer, runs on the host oracle, as the JAX package's BLS lane
+routes it. AggregatePKs sums as many keys on the device too; Sign, SkToPk
+and Aggregate are the host oracle's.
 
 `device` ("cuda" unless `use_device` says otherwise) is where the flush runs;
 the CPU runs the kernels' plain versions. When `bls_active` is False every
@@ -107,7 +109,7 @@ def _flush(queue) -> list:
         if kind == "verify":
             checks.append(bls_torch.make_verify_check(*args))
         elif kind == "fast_aggregate":
-            checks.append(bls_torch.make_fast_aggregate_check(*args))
+            checks.append(bls_torch.make_fast_aggregate_check(*args, device=device))
         else:
             checks.append(None)
             host[i] = bool(_py.AggregateVerify(*args))
@@ -167,6 +169,11 @@ def SkToPk(privkey) -> bytes:
 
 
 def AggregatePKs(pubkeys) -> bytes:
-    """Not behind the kill-switch: aggregate pubkeys are state content."""
+    """Not behind the kill-switch: aggregate pubkeys are state content.
+    DEVICE_AGGREGATE_MIN or more keys are summed on `device`, with the new
+    keys' subgroup checks batched there, as the JAX shim's jax backend
+    does; fewer go to the host oracle."""
+    if len(pubkeys) >= bls_torch.DEVICE_AGGREGATE_MIN:
+        return bls_torch.aggregate_pubkeys_device(pubkeys, device)
     return _py.AggregatePKs(pubkeys)
 

@@ -2,13 +2,15 @@
 port's BLS shim (crypto/bls.py) and the pairing kernels (ops/bls12.py);
 counterpart of the JAX package's crypto/bls_jax.py.
 
-Host side (here): decompression, hash-to-curve and committee aggregation
-with the copied pure-Python oracle (crypto/bls12_381.py), padding to
-power-of-two buckets (utils/bucketing.py), packing the points into words.
-Device side: one K8 launch puts every coordinate of a flush into the
-Montgomery domain, then the randomized batch check
-(`pairing_check_rlc`, grouped by message when messages repeat) and, for a
-small batch or one whose randomized check fails, the per-item
+Host side (here): decompression, hash-to-curve and the aggregation of
+small committees with the copied pure-Python oracle (crypto/bls12_381.py),
+padding to power-of-two buckets (utils/bucketing.py), packing the points
+into words. Device side: committees of DEVICE_AGGREGATE_MIN or more keys
+are summed on the card (K10 over one segment), their new keys checked for
+the r-subgroup in one batched ladder (K14). At the flush one K8 launch puts
+every coordinate into the Montgomery domain, then the randomized batch
+check (`pairing_check_rlc`, grouped by message when messages repeat) runs
+and, for a small batch or one whose randomized check fails, the per-item
 `pairing_check_batch` for attribution.
 
 The randomizers z of the batch check come from `secrets`, a CSPRNG drawn
@@ -103,15 +105,57 @@ def make_verify_check(pubkey, message, signature) -> QueuedCheck | None:
 _AGG_CACHE: dict = {}
 _AGG_CACHE_MAX = 1 << 12
 
+# Keys validated by the batched device subgroup check: compressed bytes ->
+# affine pair, a bounded FIFO (an lru_cache fills only through its wrapped
+# call, which is the host's 255-bit check this path avoids). The JAX
+# package's size and eviction: one mainnet block at N = 2^20 carries 66,048
+# distinct keys, 512 more than it holds.
+_PK_VALIDATED: dict = {}
+_PK_VALIDATED_MAX = 1 << 16
 
-def _aggregate_pubkeys_affine(pubkeys_bytes: list):
-    """Affine sum of compressed pubkeys on the host (None for an infinity
-    member or sum); raises ValueError on an invalid encoding."""
+# below this many keys, host point additions beat a launch
+DEVICE_AGGREGATE_MIN = 32
+
+# device aggregations, the keys they summed, the cold keys they checked
+pubkey_aggregate_device_total = 0
+pubkey_aggregate_device_keys_total = 0
+pubkey_subgroup_device_total = 0
+
+
+def clear_caches() -> None:
+    """Forget every committee aggregate and validated key: the committee
+    cache, the device-validated keys and the host-validated ones."""
+    _AGG_CACHE.clear()
+    _PK_VALIDATED.clear()
+    g1_from_bytes.cache_clear()
+
+
+def _cache_aggregate(key: bytes, agg) -> None:
+    if len(_AGG_CACHE) >= _AGG_CACHE_MAX:
+        _AGG_CACHE.pop(next(iter(_AGG_CACHE)))
+    _AGG_CACHE[key] = agg
+
+
+def _aggregate_pubkeys_affine(pubkeys_bytes: list, device="cuda"):
+    """Affine sum of compressed pubkeys (None for an infinity member or
+    sum); raises ValueError on an invalid encoding. DEVICE_AGGREGATE_MIN or
+    more keys go to the card (`_aggregate_pubkeys_device_impl`), which the
+    JAX package reaches through its scheduler's msm lane and calls inline
+    when that lane is absent, as here until the port has a scheduler."""
     key = hashlib.sha256(b"".join(pubkeys_bytes)).digest()
     hit = _AGG_CACHE.pop(key, None)
     if hit is not None:
         _AGG_CACHE[key] = hit
         return hit
+    if len(pubkeys_bytes) >= DEVICE_AGGREGATE_MIN:
+        marker = _aggregate_pubkeys_device_impl(pubkeys_bytes, device)
+        if marker[0] == "bad_encoding":
+            raise ValueError(marker[1])
+        if marker[0] in ("inf_member", "inf"):
+            return None  # never cached
+        agg = (marker[1], marker[2])
+        _cache_aggregate(key, agg)
+        return agg
     acc = None
     for pk in pubkeys_bytes:
         aff = g1_from_bytes(pk)
@@ -122,18 +166,81 @@ def _aggregate_pubkeys_affine(pubkeys_bytes: list):
     agg = oracle.pt_to_affine(oracle.FP_FIELD, acc)
     if agg is None:
         return None
-    if len(_AGG_CACHE) >= _AGG_CACHE_MAX:
-        _AGG_CACHE.pop(next(iter(_AGG_CACHE)))
-    _AGG_CACHE[key] = agg
+    _cache_aggregate(key, agg)
     return agg
 
 
-def make_fast_aggregate_check(pubkeys, message, signature) -> QueuedCheck | None:
-    """FastAggregateVerify: the keys summed on the host, then one check."""
+def _aggregate_pubkeys_device_impl(pubkeys_bytes: list, device="cuda"):
+    """Committee aggregation on the card (counterpart of the JAX package's
+    msm-lane "aggregate" kind). Returns a marker instead of raising:
+
+        ("point", x, y)        the affine aggregate
+        ("inf",)               the sum is the identity
+        ("inf_member",)        a member is the point at infinity
+        ("bad_encoding", msg)  decompression or subgroup rejection
+
+    Keys not validated before decompress without the host's 255-bit [r]P
+    check and are checked together in one K14 launch; the sum is one K10
+    launch over one segment (`ops/bls12.g1_aggregate_device`)."""
+    global pubkey_aggregate_device_total, pubkey_aggregate_device_keys_total
+    global pubkey_subgroup_device_total
+    affs: list = []
+    cold: list = []
+    try:
+        for i, pk in enumerate(pubkeys_bytes):
+            pk = bytes(pk)
+            hit = _PK_VALIDATED.get(pk)
+            if hit is not None:
+                affs.append(hit)
+                continue
+            aff = oracle.g1_from_bytes(pk, subgroup_check=False)
+            if aff is None:
+                return ("inf_member",)
+            affs.append(aff)
+            cold.append(i)
+    except ValueError as e:
+        return ("bad_encoding", str(e))
+    if cold:
+        ok = K.g1_subgroup_check_device([affs[i] for i in cold], device)
+        if not bool(ok.all()):
+            return ("bad_encoding", "G1 point not in r-subgroup")
+        for i in cold:
+            if len(_PK_VALIDATED) >= _PK_VALIDATED_MAX:
+                _PK_VALIDATED.pop(next(iter(_PK_VALIDATED)))
+            _PK_VALIDATED[bytes(pubkeys_bytes[i])] = affs[i]
+        pubkey_subgroup_device_total += len(cold)
+    total = K.g1_aggregate_device(affs, device)
+    pubkey_aggregate_device_total += 1
+    pubkey_aggregate_device_keys_total += len(affs)
+    if total is None:
+        return ("inf",)
+    return ("point", total[0], total[1])
+
+
+def aggregate_pubkeys_device(pubkeys, device="cuda") -> bytes:
+    """AggregatePKs on the card: compressed keys in, the compressed aggregate
+    out (0xc0... for an infinity sum). Raises ValueError on an empty list,
+    an invalid encoding, a key outside the subgroup or an infinity key, as
+    the host oracle's AggregatePKs does."""
+    if len(pubkeys) == 0:
+        raise ValueError("aggregate of empty pubkey list")
+    marker = _aggregate_pubkeys_device_impl([bytes(pk) for pk in pubkeys], device)
+    if marker[0] == "bad_encoding":
+        raise ValueError(marker[1])
+    if marker[0] == "inf_member":
+        raise ValueError("infinity pubkey in aggregate")
+    if marker[0] == "inf":
+        return oracle.g1_to_bytes(None)
+    return oracle.g1_to_bytes((marker[1], marker[2]))
+
+
+def make_fast_aggregate_check(pubkeys, message, signature, device="cuda") -> QueuedCheck | None:
+    """FastAggregateVerify: the keys summed (on `device` from
+    DEVICE_AGGREGATE_MIN keys, else on the host), then one check."""
     if len(pubkeys) == 0:
         return None
     try:
-        agg = _aggregate_pubkeys_affine([bytes(pk) for pk in pubkeys])
+        agg = _aggregate_pubkeys_affine([bytes(pk) for pk in pubkeys], device)
         sig = g2_from_bytes(bytes(signature))
     except ValueError:
         return None

@@ -4,7 +4,8 @@
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py `g1_double` :641, `g1_add`
 // :661, `g2_double`/`g2_add` :892-956, `g1_scalar_mul_batch` :782 and
-// `g2_scalar_mul_batch` :957 (2-bit windows), `_g1_jacobian_to_affine_batch`
+// `g2_scalar_mul_batch` :957 (2-bit windows; also the r-ladder of
+// `_g1_subgroup_program` :1347), `_g1_jacobian_to_affine_batch`
 // :868, `g2_jacobian_to_affine` :1043. The formulas are JAX's. Its complete
 // add selects among the cases with masks; here the thread branches on them
 // exactly as the selects decide: Z1 = 0 gives p2, else Z2 = 0 gives p1;
@@ -119,6 +120,26 @@ BLS_NOINLINE void jac_add(jac<F> &r, const jac<F> &p1, const jac<F> &p2) {
     r.z = Z1Z2;
 }
 
+// One block's sum of n entries (K10's segments, K13's windows): thread t adds
+// the entries i = t, t + T, ... (T = blockDim.x, a power of two), where
+// `entry(i, e)` loads entry i into e and says whether it is there at all;
+// then the T shares meet in a tree in the shared `part` (T points). Every
+// thread returns with the sum in part[0].
+template <typename F, typename Entry>
+BLS_INLINE void block_tree_sum(jac<F> *part, long long n, Entry entry) {
+    int t = threadIdx.x;
+    jac<F> acc, e;
+    jac_set_inf(acc);
+    for (long long i = t; i < n; i += blockDim.x)
+        if (entry(i, e)) jac_add(acc, acc, e);
+    part[t] = acc;
+    __syncthreads();
+    for (int half = blockDim.x / 2; half > 0; half >>= 1) {
+        if (t < half) jac_add(part[t], part[t], part[t + half]);
+        __syncthreads();
+    }
+}
+
 // (X/Z^2, Y/Z^3); Z = 0 gives (0, 0)
 template <typename F>
 BLS_NOINLINE void jac_to_affine(F &x, F &y, const jac<F> &p) {
@@ -130,19 +151,23 @@ BLS_NOINLINE void jac_to_affine(F &x, F &y, const jac<F> &p) {
     fmul(y, p.y, t);
 }
 
-// [z]·p with 2-bit windows: the table [0, p, 2p, 3p], the top window's
-// entry, then 31 times two doublings and one add of the window's entry
+// [z]·p with 2-bit windows over `nwin` windows of the little-endian words z
+// (digit w is bits 2w and 2w + 1): the table [0, p, 2p, 3p], the top window's
+// entry, then nwin - 1 times two doublings and one add of the window's entry.
+// K9 runs it over 64-bit z (32 windows), K14 over r (255 bits, padded to 256:
+// 128 windows), as JAX's g1_scalar_mul_batch pads an odd width.
 template <typename F>
-BLS_NOINLINE void jac_scalar_mul(jac<F> &r, const jac<F> &p, uint32_t zlo, uint32_t zhi) {
+BLS_NOINLINE void jac_scalar_mul(jac<F> &r, const jac<F> &p, const uint32_t *z, int nwin) {
     jac<F> tab[4], acc;
     jac_set_inf(tab[0]);
     tab[1] = p;
     jac_double(tab[2], p);
     jac_add(tab[3], tab[2], p);
-    acc = tab[zhi >> 30];
+    int top = nwin - 1;
+    acc = tab[(z[top >> 4] >> (2 * (top & 15))) & 3u];
 #pragma unroll 1
-    for (int w = 30; w >= 0; --w) {
-        uint32_t d = w >= 16 ? (zhi >> (2 * (w - 16))) & 3u : (zlo >> (2 * w)) & 3u;
+    for (int w = top - 1; w >= 0; --w) {
+        uint32_t d = (z[w >> 4] >> (2 * (w & 15))) & 3u;
         jac_double(acc, acc);
         jac_double(acc, acc);
         jac_add(acc, acc, tab[d]);

@@ -10,7 +10,8 @@
 //
 // K10 point_sums: one block a segment [off[d], off[d+1]) of Jacobian points
 // (segments in order, sorted by the caller): each of the block's threads
-// adds a strided share, the shares meet in a tree in shared memory, thread 0
+// adds a strided share, the shares meet in a tree in shared memory
+// (curve.cuh's block_tree_sum, which K13's window sums share), thread 0
 // makes the sum affine. An empty segment sums to infinity and comes out
 // (0, 0) (inv(0) = 0); `pairing_check_rlc` fails such a batch from the
 // segment counts. G2 with one segment is the bilinearity collapse (:1014 +
@@ -37,7 +38,7 @@ __global__ void rlc_ladders_kernel(const fp *__restrict__ p, const fp2 *__restri
         pt.x = p[2 * t];
         pt.y = p[2 * t + 1];
         fp_set_one(pt.z);
-        jac_scalar_mul(r, pt, z[2 * t], z[2 * t + 1]);
+        jac_scalar_mul(r, pt, z + 2 * t, 32);
         if (affine) {
             jac_to_affine(g1[2 * t], g1[2 * t + 1], r);
         } else {
@@ -51,7 +52,7 @@ __global__ void rlc_ladders_kernel(const fp *__restrict__ p, const fp2 *__restri
         pt.x = q[2 * i];
         pt.y = q[2 * i + 1];
         f2_set_one(pt.z);
-        jac_scalar_mul(r, pt, z[2 * i], z[2 * i + 1]);
+        jac_scalar_mul(r, pt, z + 2 * i, 32);
         g2[3 * i] = r.x;
         g2[3 * i + 1] = r.y;
         g2[3 * i + 2] = r.z;
@@ -64,17 +65,13 @@ template <typename F>
 __global__ void point_sums_kernel(const jac<F> *__restrict__ pts, const long long *__restrict__ off,
                                   F *out) {
     __shared__ jac<F> part[SUM_THREADS];
-    int d = blockIdx.x, t = threadIdx.x;
-    jac<F> acc;
-    jac_set_inf(acc);
-    for (long long i = off[d] + t; i < off[d + 1]; i += SUM_THREADS) jac_add(acc, acc, pts[i]);
-    part[t] = acc;
-    __syncthreads();
-    for (int half = SUM_THREADS / 2; half > 0; half >>= 1) {
-        if (t < half) jac_add(part[t], part[t], part[t + half]);
-        __syncthreads();
-    }
-    if (t == 0) jac_to_affine(out[2 * d], out[2 * d + 1], part[0]);
+    int d = blockIdx.x;
+    const jac<F> *seg = pts + off[d];
+    block_tree_sum(part, off[d + 1] - off[d], [&](long long i, jac<F> &e) {
+        e = seg[i];
+        return true;
+    });
+    if (threadIdx.x == 0) jac_to_affine(out[2 * d], out[2 * d + 1], part[0]);
 }
 
 extern "C" int rlc_ladders(const void *p, const void *q, const void *z, void *g1, void *g2,

@@ -29,8 +29,9 @@ is not free is where the JAX package's values depend on a representative:
   selects; the plain version computes each case only on its rows, so its
   product count is what this data needs.
 
-Kernels (csrc/rlc.cu, csrc/pairing.cu; one thread an item, the field in
-csrc/fp.cuh, the towers in csrc/tower.cuh, the curves in csrc/curve.cuh):
+Kernels (csrc/rlc.cu, csrc/pairing.cu, csrc/msm.cu; one thread an item, the
+field in csrc/fp.cuh, the towers in csrc/tower.cuh, the curves in
+csrc/curve.cuh):
 - K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
   (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
   in the same thread where asked (:868);
@@ -40,7 +41,12 @@ csrc/fp.cuh, the towers in csrc/tower.cuh, the curves in csrc/curve.cuh):
 - K11 `miller_loop` (:514);
 - K12 `final_exp`: the final exponentiation and `f12_is_one` (:611, :628),
   by item (`pairing_cube_batch` :762, `pairing_check_batch` :768) or after a
-  one-block tree product (`f12_prod_reduce` :1061, `rlc_tail` :1219).
+  one-block tree product (`f12_prod_reduce` :1061, `rlc_tail` :1219);
+- K13 `g1_msm` (csrc/msm.cu): the windowed bucket MSM (`g1_msm_pippenger`
+  :1291), affine out;
+- K14 `g1_subgroup` (csrc/msm.cu): [r]·P == infinity per item (:1347).
+The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
+segment.
 Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
 CPU tensors.
 """
@@ -51,7 +57,7 @@ import torch
 
 from ..crypto import bls12_381 as oracle
 from ..kernels import build
-from ..utils.device import is_cpu
+from ..utils.device import is_cpu, resolve_device
 from . import fp
 from .fp import (
     NLIMBS,
@@ -529,23 +535,24 @@ def g2_add(p1, p2):
 
 
 def _digits(zbits: torch.Tensor) -> torch.Tensor:
-    """(N, 2) int32 words of z -> (N, 32) int64 2-bit digits, LSB first."""
+    """(N, k) int32 words of z -> (N, 16k) int64 2-bit digits, LSB first."""
     w = zbits.to(torch.int64) & 0xFFFFFFFF
     shifts = torch.arange(0, 32, 2, device=zbits.device)
-    return torch.cat([(w[:, :1] >> shifts) & 3, (w[:, 1:] >> shifts) & 3], -1)
+    return ((w[:, :, None] >> shifts) & 3).flatten(1)
 
 
 def scalar_mul_limbs(F, pt, zbits):
     """[z]·pt per item, 2-bit windows (:782, :957): the table [0, P, 2P, 3P],
-    the top window's entry, then 31 times two doublings and one complete add
-    of the window's entry. pt (N, 3, ...) Jacobian."""
+    the top window's entry, then (16k - 1) times two doublings and one
+    complete add of the window's entry. pt (N, 3, ...) Jacobian, zbits (N, k)
+    int32 words of z (k = 2 for K9's 64-bit z, 8 for K14's r)."""
     n = pt.shape[0]
     p2 = jac_double(F, pt)
     tab = torch.stack([torch.zeros_like(pt), pt, p2, jac_add(F, p2, pt)])
     digits = _digits(zbits)
     rows = torch.arange(n, device=pt.device)
-    acc = tab[digits[:, 31], rows]
-    for w in range(30, -1, -1):
+    acc = tab[digits[:, -1], rows]
+    for w in range(digits.shape[1] - 2, -1, -1):
         acc = jac_add(F, jac_double(F, jac_double(F, acc)), tab[digits[:, w], rows])
     return acc
 
@@ -859,6 +866,244 @@ def pairing_check_rlc(q1, p1, q2, zbits, seg_ids=None):
     return ok if members is None else ok & members
 
 
+# --- the MSM, the committee-key sum and the subgroup check (:1254-1494) -----------
+#
+# JAX's MSM exchanges the bucket scatter for a digit-indexed gather:
+#     sum_k k·(sum_{i: d_i = k} P_i) == sum_i [d_i]·P_i,
+# so each (item, window) reads [d_ij]·P_i from the item's bucket table, the
+# window sums are one tree over the items, and a Horner combine folds the
+# windows MSB first. K13 computes that on the card; its result and the plain
+# version's are affine, hence canonical whatever order the sums took.
+
+MSM_WINDOW = 4  # default window width: 2^w bucket-table entries an item
+R_ORDER = oracle.R
+
+
+def msm_window_digits(bits: torch.Tensor, window: int = MSM_WINDOW) -> torch.Tensor:
+    """(..., nbits) LSB-first scalar bits (bool or 0/1) -> (..., W) int64 window
+    digits, W = ceil(nbits / window); nbits zero-pads up to a multiple of the
+    window (:1257)."""
+    nbits = bits.shape[-1]
+    rem = (-nbits) % window
+    b = bits.to(torch.int64)
+    if rem:
+        b = torch.cat([b, b.new_zeros(b.shape[:-1] + (rem,))], -1)
+    weights = 1 << torch.arange(window, dtype=torch.int64, device=b.device)
+    return (b.reshape(b.shape[:-1] + (-1, window)) * weights).sum(-1)
+
+
+def scalar_words(scalars, nbits: int) -> torch.Tensor:
+    """Int scalars -> (n, ceil(nbits / 32)) int32 words, LSB first, each cut
+    to its low nbits bits (JAX reads nbits bits of a scalar, :1368)."""
+    nwords = (nbits + 31) // 32
+    mask = (1 << nbits) - 1
+    buf = b"".join((int(s) & mask).to_bytes(4 * nwords, "little") for s in scalars)
+    return torch.from_numpy(np.frombuffer(buf, dtype="<u4").astype(np.uint32)
+                            .view(np.int32).reshape(-1, nwords).copy())
+
+
+def _scalar_bits(scalars: torch.Tensor, nbits: int) -> torch.Tensor:
+    """(N, nwords) int32 words -> (N, nbits) int64 bits, LSB first."""
+    w = scalars.to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.arange(32, device=scalars.device)
+    return ((w[:, :, None] >> shifts) & 1).flatten(1)[:, :nbits]
+
+
+def _g1_bucket_tables(pt: torch.Tensor, window: int) -> torch.Tensor:
+    """Per-item tables tab[k] = [k]·P_i, k < 2^window, stacked on a leading
+    axis: pt (N, 3, 24) Jacobian limbs -> (2^w, N, 3, 24) (:1277). Entry 0 is
+    the Jacobian zero; even entries double tab[k/2], odd ones add P once."""
+    table = [torch.zeros_like(pt), pt]
+    for k in range(2, 1 << window):
+        table.append(jac_double(_Fp, table[k // 2]) if k % 2 == 0
+                     else jac_add(_Fp, table[k - 1], pt))
+    return torch.stack(table)
+
+
+def _sum_points(pts: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 0 of (N, ..., 3, 24) Jacobian G1 limbs: padded with Z = 0
+    to a power of two and tree-summed with the complete add."""
+    n = pts.shape[0]
+    width = 1
+    while width < n:
+        width *= 2
+    if width > n:
+        pts = torch.cat([pts, pts.new_zeros((width - n,) + pts.shape[1:])])
+    while pts.shape[0] > 1:
+        pts = jac_add(_Fp, pts[0::2], pts[1::2])
+    return pts[0]
+
+
+def _check_msm_args(pts, scalars, nbits, window):
+    pts = _check("g1_msm points", pts, (3, NWORDS))
+    if not 2 <= window <= 8 or nbits < 1:
+        raise ValueError(f"g1_msm takes 2 <= window <= 8 and nbits >= 1, got {window}, {nbits}")
+    scalars = _check("g1_msm scalars", scalars, ((nbits + 31) // 32,))
+    if scalars.shape[0] != pts.shape[0] or scalars.device != pts.device or pts.shape[0] == 0:
+        raise ValueError("g1_msm: points and scalars differ in count or device, or are empty")
+    return pts, scalars
+
+
+def g1_msm_plain(pts, scalars, nbits: int, window: int = MSM_WINDOW):
+    """Plain version of K13 (see `g1_msm`): digits, bucket tables, the gather,
+    one tree over the items for every window, the Horner combine (:1291)."""
+    pts, scalars = _check_msm_args(pts, scalars, nbits, window)
+    n = pts.shape[0]
+    digits = msm_window_digits(_scalar_bits(scalars, nbits), window)  # (N, W)
+    tab = _g1_bucket_tables(to_limbs(pts), window)  # (2^w, N, 3, 24)
+    rows = torch.arange(n, device=pts.device)[:, None]
+    sums = _sum_points(tab[digits, rows])  # (W, 3, 24)
+    acc = sums[-1]
+    for j in range(sums.shape[0] - 2, -1, -1):
+        for _ in range(window):
+            acc = jac_double(_Fp, acc)
+        acc = jac_add(_Fp, acc, sums[j])
+    return to_words(jac_to_affine(_Fp, acc))
+
+
+def g1_msm(pts, scalars, nbits: int, window: int = MSM_WINDOW):
+    """K13: sum_i [s_i]·P_i -> (2, 12) affine words, (0, 0) for the identity.
+    pts (N, 3, 12) Jacobian (Z = 0 rows add nothing), scalars (N, ceil(nbits /
+    32)) int32 words, LSB first (bits at or above nbits are ignored), 2 <=
+    window <= 8. Kernel on CUDA, plain on the CPU."""
+    pts, scalars = _check_msm_args(pts, scalars, nbits, window)
+    if is_cpu(pts):
+        return g1_msm_plain(pts, scalars, nbits, window)
+    n = pts.shape[0]
+    nwin = -(-nbits // window)
+    tab = torch.empty((1 << window, n, 3, NWORDS), dtype=torch.int32, device=pts.device)
+    sums = torch.empty((nwin, 3, NWORDS), dtype=torch.int32, device=pts.device)
+    out = torch.empty((2, NWORDS), dtype=torch.int32, device=pts.device)
+    fn = build.entry("msm", "g1_msm", 5, 3)
+    build.count_launch("g1_msm")
+    build.check(fn(pts.data_ptr(), scalars.data_ptr(), tab.data_ptr(), sums.data_ptr(),
+                   out.data_ptr(), n, scalars.shape[1], nbits, window,
+                   build.stream_ptr(pts)), "g1_msm")
+    return out
+
+
+def g1_subgroup_check_plain(pts):
+    """Plain version of K14 (see `g1_subgroup_check`)."""
+    pts = _check("g1_subgroup_check", pts, (3, NWORDS))
+    r = scalar_words([R_ORDER], 256).to(pts.device).expand(pts.shape[0], 8)
+    return fp_is_zero(scalar_mul_limbs(_Fp, to_limbs(pts), r)[:, 2])
+
+
+def g1_subgroup_check(pts):
+    """K14: per item [r]·P == infinity, (N, 3, 12) Jacobian -> (N,) bool, with
+    the 2-bit ladder over r's 255 bits padded to 256 (:1347); a Z = 0 row
+    reports True. Kernel on CUDA, plain on the CPU."""
+    pts = _check("g1_subgroup_check", pts, (3, NWORDS))
+    if is_cpu(pts):
+        return g1_subgroup_check_plain(pts)
+    ok = torch.empty(pts.shape[0], dtype=torch.int32, device=pts.device)
+    fn = build.entry("msm", "g1_subgroup", 2)
+    build.count_launch("g1_subgroup")
+    build.check(fn(pts.data_ptr(), ok.data_ptr(), pts.shape[0], build.stream_ptr(pts)),
+                "g1_subgroup")
+    return ok != 0
+
+
+def g1_aggregate(pts):
+    """The all-ones MSM, sum_i P_i of (N, 3, 12) Jacobian points -> (2, 12)
+    affine words, (0, 0) for infinity (:1339): K10 over one segment."""
+    return point_sums(pts, _whole(pts))[0]
+
+
+def _msm_pow2_pad(n: int, min_bucket: int = 8) -> int:
+    b = min_bucket
+    while b < n:
+        b *= 2
+    return b
+
+
+def _jacobian_words(points_aff, pads: int, device) -> torch.Tensor:
+    """Affine int pairs, then `pads` Jacobian zeros -> (n + pads, 3, 12)
+    Montgomery words on `device` (Z = 1 for the points)."""
+    n = len(points_aff)
+    out = torch.zeros((n + pads, 3, NWORDS), dtype=torch.int32)
+    if n:
+        out[:n, :2] = torch.from_numpy(fp.ints_to_mont_words(
+            [c for pt in points_aff for c in pt]).reshape(n, 2, NWORDS))
+        out[:n, 2] = torch.from_numpy(fp.ints_to_words([fp.R_MOD_P])[0])
+    return out.to(device)
+
+
+def _affine_or_none(words):
+    """(2, 12) affine words -> an int pair, or None for (0, 0), the image of
+    infinity ((0, 0) is not on the curve)."""
+    x, y = fp.mont_words_to_ints(words)
+    return None if x == 0 and y == 0 else (x, y)
+
+
+def g1_msm_device(points_aff, scalars, nbits: int, window: int = MSM_WINDOW,
+                  device="cuda"):
+    """Host-callable MSM (:1376): affine int pairs and int scalars in, the
+    affine int pair out (None for the identity). The item count pads to a
+    power-of-two bucket (at least 8) with (G1 generator, scalar 0)."""
+    dev = resolve_device(device)
+    b = _msm_pow2_pad(len(points_aff))
+    pad = b - len(points_aff)
+    pts = _jacobian_words(list(points_aff) + [oracle.G1_GEN_AFF] * pad, 0, dev)
+    sc = scalar_words(list(scalars) + [0] * pad, nbits).to(dev)
+    return _affine_or_none(g1_msm(pts, sc, nbits, window))
+
+
+def g1_aggregate_device(points_aff, device="cuda"):
+    """sum_i P_i (:1402): affine int pairs in, the affine pair out (None for
+    an infinity sum); pads to the bucket with Jacobian zeros."""
+    dev = resolve_device(device)
+    b = _msm_pow2_pad(len(points_aff))
+    return _affine_or_none(g1_aggregate(_jacobian_words(points_aff, b - len(points_aff), dev)))
+
+
+def g1_subgroup_check_device(points_aff, device="cuda") -> np.ndarray:
+    """r-subgroup membership per affine point (:1426): (n,) bool; the batch
+    pads to the bucket with Jacobian zeros (True, discarded)."""
+    dev = resolve_device(device)
+    n = len(points_aff)
+    pts = _jacobian_words(points_aff, _msm_pow2_pad(n) - n, dev)
+    return g1_subgroup_check(pts).cpu().numpy()[:n]
+
+
+# Shape-only cost accounting (:1453-1494), from (n, nbits, window) alone.
+
+
+def g1_ladder_op_counts(n: int, nbits: int) -> dict:
+    """G1 point ops of the per-item ladder for an (n, nbits) MSM: a 4-entry
+    table (1 double + 1 add), then ceil(nbits/2) - 1 steps of 2 doubles and
+    1 add, an item."""
+    nw = (nbits + 1) // 2
+    return {"doubles": n * (1 + 2 * (nw - 1)), "adds": n * nw}
+
+
+def g1_msm_op_counts(n: int, nbits: int, window: int = MSM_WINDOW) -> dict:
+    """G1 point ops of the bucket MSM for an (n, nbits, w) MSM: the tables,
+    the window tree and the Horner combine."""
+    n_windows = -(-nbits // window)
+    half = (1 << (window - 1)) - 1
+    return {"doubles": n * half + window * (n_windows - 1),
+            "adds": n * half + (n - 1) * n_windows + (n_windows - 1)}
+
+
+def g1_msm_data_op_counts(scalars: torch.Tensor, nbits: int, window: int = MSM_WINDOW) -> dict:
+    """The point ops an MSM's own (N, nwords) scalar words need, where
+    `g1_msm_op_counts` counts every item and digit of the shape: tables for
+    the items with a nonzero digit, (nonzero digits - 1) tree adds a window,
+    and the Horner combine from the top window with a nonzero digit. Pads
+    (scalar 0) and zero digits cost nothing; dense digits give the shape's
+    count."""
+    nz = msm_window_digits(_scalar_bits(scalars.cpu(), nbits), window) != 0
+    items = int(nz.any(dim=1).sum())
+    per_window = nz.sum(dim=0)
+    tree = int((per_window - 1).clamp(min=0).sum())
+    used = torch.nonzero(per_window).flatten()
+    steps = int(used[-1]) if used.numel() else 0
+    half = (1 << (window - 1)) - 1
+    return {"doubles": items * half + window * steps,
+            "adds": items * half + tree + steps}
+
+
 # --- the kernels' constants -------------------------------------------------------
 
 
@@ -867,6 +1112,8 @@ def cuda_constants_header() -> str:
     test holds the committed file equal to it)."""
     def words(x):
         return "{" + ", ".join(f"0x{int(w):08x}u" for w in fp.int_to_words(x)) + "}"
+
+    r_words = "{" + ", ".join(f"0x{int(w):08x}u" for w in fp.int_to_words(oracle.R)[:8]) + "}"
 
     def f2_rows(gs):
         return ",\n    ".join("{" + words(fp.to_mont(g[0])) + ", " + words(fp.to_mont(g[1])) + "}"
@@ -885,6 +1132,8 @@ __device__ __constant__ uint32_t FP_R2[12] = {words(fp.R2_MOD_P)};
 __device__ __constant__ uint32_t FP_EXP_INV[12] = {words(P - 2)};
 __device__ __constant__ uint32_t FP_EXP_SQRT[12] = {words((P + 1) // 4)};
 #define FP_N0 0x{fp.N0_32:08x}u  // -p^-1 mod 2^32
+// r, the order of G1 (a plain integer, eight words): the subgroup check's scalar
+__device__ __constant__ uint32_t R_ORDER[8] = {r_words};
 #define X_ABS 0x{ABS_X:016x}ull  // |x|, the BLS parameter
 // gamma1^k = xi^(k(p-1)/6) and gamma2^k = conj(gamma1^k)·gamma1^k, k = 0..5
 __device__ __constant__ uint32_t GAMMA1[6][2][12] = {{

@@ -10,12 +10,16 @@ epoch followed by the `device_roots()` refresh of the cache, one
 sync-committee sample (the rotation's work) on the current columns, and
 the BLS flushes of one block (131 checks) and of one slot's gossip
 aggregates (1024 checks), from `crypto/bls_synthetic.flush_inputs(0)`
-after one warm-up flush each. For each window it prints the
+after one warm-up flush each, the block's cold committee-key aggregation
+(129 FastAggregateVerify calls over 66,048 keys, key caches cleared,
+signatures decompressed before) and the KZG sample batch at 128 blobs
+(`crypto/msm_synthetic`, seed 0). For each window it prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
-activities that took the most device time. Two last windows run the K
-epochs and the gossip flush under cProfile and print the host functions
-with the most own time. Needs a card; without one it exits nonzero.
+activities that took the most device time. The last windows run the K
+epochs, the gossip flush, the cold aggregation and the KZG batch under
+cProfile and print the host functions with the most own time. Needs a
+card; without one it exits nonzero.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from .crypto import bls_synthetic, bls_torch
+    from .crypto import bls_synthetic, bls_torch, kzg_batch, msm_synthetic
     from .engine.resident import ResidentEpochLoop
     from .engine.state import EpochConfig
     from .engine.sync_committee import sync_committee_for_state
@@ -102,13 +106,32 @@ def main(argv=None) -> int:
     block_flush()
     gossip_flush()
 
+    agg_in = msm_synthetic.block_aggregate_inputs(0)
+    kzg_in = msm_synthetic.kzg_inputs(0)
+    for _, _, sig in agg_in["calls"]:
+        bls_torch.g2_from_bytes(sig)
+
+    def cold_aggregation():
+        bls_torch.clear_caches()
+        for pks, msg, sig in agg_in["calls"]:
+            if bls_torch.make_fast_aggregate_check(pks, msg, sig, device=dev) is None:
+                raise RuntimeError("a valid synthetic committee failed to aggregate")
+
+    def kzg_samples():
+        if not kzg_batch.batch_verify_samples(kzg_in["setup"], kzg_in["samples"], device=dev):
+            raise RuntimeError("the synthetic KZG batch failed")
+
+    kzg_samples()
+
     print(f"card: {torch.cuda.get_device_name(0)}; N={args.n}")
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
                       ("field_roots", lambda: loop.field_roots(static01)),
                       ("one epoch + device_roots refresh", refresh),
                       ("sync-committee sample", rotation),
                       (f"BLS block flush ({len(block)} checks)", block_flush),
-                      (f"BLS gossip flush ({len(gossip)} checks)", gossip_flush)):
+                      (f"BLS gossip flush ({len(gossip)} checks)", gossip_flush),
+                      (f"cold key aggregation ({len(agg_in['calls'])} calls)", cold_aggregation),
+                      (f"KZG sample batch ({len(kzg_in['samples'])} blobs)", kzg_samples)):
         wall_us, rows = _profile(fn, torch)
         device_us = sum(r[2] for r in rows)
         if not rows:
@@ -125,7 +148,9 @@ def main(argv=None) -> int:
     import pstats
 
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
-                      ("the BLS gossip flush", gossip_flush)):
+                      ("the BLS gossip flush", gossip_flush),
+                      ("the cold key aggregation", cold_aggregation),
+                      ("the KZG sample batch", kzg_samples)):
         torch.cuda.synchronize()
         prof = cProfile.Profile()
         prof.enable()

@@ -6,7 +6,13 @@ shim (crypto/bls.py) on the CPU, where every kernel runs its plain version:
   randomizers come from the CSPRNG, and `run_checks` attributes a bad check
   to its index on both the ungrouped and the grouped path;
 - the shim's deferral semantics: one flush at the outermost exit, inner
-  bodies that raise drop their checks, per-thread queues, the kill-switch.
+  bodies that raise drop their checks, per-thread queues, the kill-switch;
+- committee-key aggregation from DEVICE_AGGREGATE_MIN keys: the markers of
+  `_aggregate_pubkeys_device_impl` equal the JAX package's on the same keys,
+  cold keys are checked once and cached, and AggregatePKs /
+  FastAggregateVerify give the host oracle's results.
+Tolerance: exact (points, bytes, markers and verdicts compared for
+equality).
 """
 import dataclasses
 import threading
@@ -309,3 +315,116 @@ def test_shim_kill_switch_returns_stubs(cpu_shim):
     bls.bls_active = True
     assert bls.SkToPk(5) == bls_sig.SkToPk(5)
     assert bls.AggregatePKs([bls.SkToPk(5)]) == bls.SkToPk(5)
+
+
+# --- committee-key aggregation on the device path ------------------------------------
+
+
+@pytest.fixture
+def fresh_key_caches():
+    def clear():
+        bls_torch.clear_caches()
+        bls_jax._AGG_CACHE.clear()
+        bls_jax._PK_VALIDATED.clear()
+
+    clear()
+    yield
+    clear()
+
+
+def _committee(seed, n):
+    sks = _keys(seed, n)
+    return sks, [bls_sig.SkToPk(k) for k in sks]
+
+
+def _g1_mul(k):
+    return oracle.pt_to_affine(oracle.FP_FIELD, oracle.pt_mul(oracle.FP_FIELD, oracle.G1_GEN,
+                                                              k % oracle.R))
+
+
+@pytest.mark.parametrize("case", ["valid", "inf_member", "non_subgroup", "bad_encoding"])
+def test_device_aggregation_markers_match_jax(case, fresh_key_caches):
+    """40 keys (a 64-item bucket): a valid committee, one with the point at
+    infinity, one with the on-curve (0, 2) outside the subgroup, one with a
+    bad encoding; the port's marker equals the JAX shim's."""
+    sks, pks = _committee(20, 40)
+    bad = {"inf_member": oracle.g1_to_bytes(None), "non_subgroup": oracle.g1_to_bytes((0, 2)),
+           "bad_encoding": b"\x01" * 48}.get(case)
+    if bad is not None:
+        pks[7] = bad
+    got = bls_torch._aggregate_pubkeys_device_impl(pks, "cpu")
+    assert got == bls_jax._aggregate_pubkeys_device_impl(pks)
+    if case == "valid":
+        assert got == ("point", *_g1_mul(sum(sks)))
+    assert got[0] == {"valid": "point", "inf_member": "inf_member",
+                      "non_subgroup": "bad_encoding", "bad_encoding": "bad_encoding"}[case]
+
+
+def _counters():
+    return (bls_torch.pubkey_aggregate_device_total,
+            bls_torch.pubkey_aggregate_device_keys_total,
+            bls_torch.pubkey_subgroup_device_total)
+
+
+def test_cold_then_cached_routing_by_counters(fresh_key_caches):
+    """First sighting: one aggregation, every key checked; again: the
+    committee cache, nothing on the device; a committee with one new key
+    checks only that key; fewer than 32 keys stay on the host."""
+    sks, pks = _committee(21, 40)
+    c0 = _counters()
+    assert bls_torch._aggregate_pubkeys_affine(pks, "cpu") == _g1_mul(sum(sks))
+    assert np.subtract(_counters(), c0).tolist() == [1, 40, 40]
+    assert len(bls_torch._PK_VALIDATED) == 40
+    assert bls_torch._aggregate_pubkeys_affine(pks, "cpu") == _g1_mul(sum(sks))
+    assert np.subtract(_counters(), c0).tolist() == [1, 40, 40]
+    new_sk = _keys(22, 1)[0]
+    pks2 = pks[1:] + [bls_sig.SkToPk(new_sk)]
+    assert bls_torch._aggregate_pubkeys_affine(pks2, "cpu") == _g1_mul(sum(sks[1:]) + new_sk)
+    assert np.subtract(_counters(), c0).tolist() == [2, 80, 41]
+    assert bls_torch._aggregate_pubkeys_affine(pks[:31], "cpu") == _g1_mul(sum(sks[:31]))
+    assert np.subtract(_counters(), c0).tolist() == [2, 80, 41]
+    bls_torch.clear_caches()
+    assert not bls_torch._AGG_CACHE and not bls_torch._PK_VALIDATED
+
+
+def test_pk_validated_is_a_bounded_fifo(fresh_key_caches, monkeypatch):
+    monkeypatch.setattr(bls_torch, "_PK_VALIDATED_MAX", 40)
+    _, pks = _committee(23, 40)
+    _, pks2 = _committee(24, 32)
+    bls_torch._aggregate_pubkeys_affine(pks, "cpu")
+    bls_torch._aggregate_pubkeys_affine(pks2, "cpu")
+    assert list(bls_torch._PK_VALIDATED) == pks[32:] + pks2
+
+
+def test_aggregate_pks_on_device_match_host(cpu_shim, fresh_key_caches):
+    _, pks = _committee(25, 33)
+    c0 = _counters()
+    assert bls.AggregatePKs(pks) == bls_sig.AggregatePKs(pks)
+    assert np.subtract(_counters(), c0).tolist() == [1, 33, 33]
+    cancel = pks[:16] + [oracle.g1_to_bytes(_neg_aff(oracle.g1_from_bytes(pk)))
+                         for pk in pks[:16]]
+    assert bls.AggregatePKs(cancel) == bls_sig.AggregatePKs(cancel) == oracle.g1_to_bytes(None)
+    with pytest.raises(ValueError, match="infinity"):
+        bls.AggregatePKs(pks[:32] + [oracle.g1_to_bytes(None)])
+    with pytest.raises(ValueError, match="subgroup"):
+        bls.AggregatePKs(pks[:32] + [oracle.g1_to_bytes((0, 2))])
+    with pytest.raises(ValueError):
+        bls_torch.aggregate_pubkeys_device([], "cpu")
+
+
+def _neg_aff(p):
+    return (p[0], (-p[1]) % oracle.P)
+
+
+def test_fast_aggregate_verify_sums_on_the_device(cpu_shim, fresh_key_caches):
+    """A 40-key FastAggregateVerify: the aggregate on the device path, then
+    the check; a key outside the subgroup makes the check fail."""
+    sks, pks = _committee(26, 40)
+    msg = b"committee root"
+    sig = bls_sig.Sign(sum(sks) % oracle.R, msg)
+    c0 = _counters()
+    check = bls_torch.make_fast_aggregate_check(pks, msg, sig, device="cpu")
+    assert check.p1 == _g1_mul(sum(sks))
+    assert np.subtract(_counters(), c0).tolist() == [1, 40, 40]
+    assert bls.FastAggregateVerify(pks, msg, sig) is True
+    assert bls.FastAggregateVerify(pks[:39] + [oracle.g1_to_bytes((0, 2))], msg, sig) is False

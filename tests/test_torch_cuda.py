@@ -404,3 +404,65 @@ def test_bls_stack_limit_covers_the_kernels(cuda):
     limit = tbls.stack_limit()
     assert 10_160 <= limit < 16_384
     assert tbls.stack_limit() == limit
+
+
+def _msm_items(n, nbits, seed):
+    """n seeded Jacobian points (a repeated point and a P + (-P) pair among
+    them) and scalars with 0, 1 and 2^64 - 1, as words on the CPU."""
+    rng = np.random.default_rng(seed)
+    F1 = bls_oracle.FP_FIELD
+    ks = [int(k) for k in rng.integers(1, 2**62, n - 3, dtype=np.int64)]
+    pts = [bls_oracle.pt_to_affine(F1, bls_oracle.pt_mul(F1, bls_oracle.G1_GEN, k)) for k in ks]
+    pts += [pts[0], pts[1], (pts[1][0], (-pts[1][1]) % bls_oracle.P)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") for _ in range(n)]
+    scalars[:3] = [0, 1, 2**64 - 1]
+    scalars[-2] = scalars[-1]  # the cancelling pair
+    return tbls._jacobian_words(pts, 0, "cpu"), tbls.scalar_words(scalars, nbits)
+
+
+@pytest.mark.parametrize("nbits,window", [(64, 4), (255, 4), (64, 3), (255, 5), (255, 8)])
+@pytest.mark.parametrize("n", [8, 100])
+def test_g1_msm_kernel_matches_plain(cuda, n, nbits, window):
+    pts, sc = _msm_items(n, nbits, n + nbits + window)
+    with _counted("g1_msm"):
+        got = tbls.g1_msm(pts.to(cuda), sc.to(cuda), nbits, window)
+    assert torch.equal(got.cpu(), tbls.g1_msm_plain(pts, sc, nbits, window))
+
+
+def test_g1_msm_kernel_identity(cuda):
+    pts, _ = _msm_items(8, 64, 1)
+    got = tbls.g1_msm(pts.to(cuda), tbls.scalar_words([0] * 8, 64).to(cuda), 64)
+    assert torch.equal(got.cpu(), torch.zeros((2, 12), dtype=torch.int32))
+
+
+def test_g1_subgroup_kernel_matches_plain(cuda):
+    pts, _ = _msm_items(10, 64, 2)
+    pts = torch.cat([pts, tbls._jacobian_words([(0, 2)], 2, "cpu")])  # (0, 2) and two pads
+    with _counted("g1_subgroup"):
+        got = tbls.g1_subgroup_check(pts.to(cuda))
+    want = tbls.g1_subgroup_check_plain(pts)
+    assert torch.equal(got.cpu(), want) and want.tolist() == [True] * 10 + [False, True, True]
+
+
+def test_device_key_aggregation_on_card(cuda):
+    """A cold committee of 40 keys: one K14 and one K10 launch, the sum equal
+    to the oracle's; again: the committee cache, no launch."""
+    sks = [int(k) for k in np.random.default_rng(9).integers(1, 2**62, 40, dtype=np.int64)]
+    pks = [bls_oracle.g1_to_bytes(bls_oracle.pt_to_affine(
+        bls_oracle.FP_FIELD, bls_oracle.pt_mul(bls_oracle.FP_FIELD, bls_oracle.G1_GEN, k)))
+        for k in sks]
+    want = bls_oracle.pt_to_affine(bls_oracle.FP_FIELD, bls_oracle.pt_mul(
+        bls_oracle.FP_FIELD, bls_oracle.G1_GEN, sum(sks) % bls_oracle.R))
+    bls_torch.clear_caches()
+    before = dict(build.LAUNCHES)
+    assert bls_torch._aggregate_pubkeys_affine(pks, cuda) == want
+    assert build.LAUNCHES["g1_subgroup"] == before["g1_subgroup"] + 1
+    assert build.LAUNCHES["point_sums"] == before["point_sums"] + 1
+    before = dict(build.LAUNCHES)
+    assert bls_torch._aggregate_pubkeys_affine(pks, cuda) == want
+    assert build.LAUNCHES == before
+    bls_torch.clear_caches()
+    assert bls_torch._aggregate_pubkeys_device_impl(
+        pks[:39] + [bls_oracle.g1_to_bytes((0, 2))], cuda) == (
+        "bad_encoding", "G1 point not in r-subgroup")
+    bls_torch.clear_caches()
