@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation and KZG
-paths on one NVIDIA card.
+"""Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG and
+fork-choice paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -59,6 +59,17 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
 5c. the KZG batch at 128 blobs (`msm_synthetic.kzg_inputs`, seed 0): the
    sample batch (two K13 MSMs, one 2-pairing check) accepted, its twin with
    one tampered value rejected, the 128 degree proofs accepted;
+5d. the LMD-GHOST head (`forkchoice/synthetic.build_storm`: the fork-choice
+   bench's storm tree, seed 2302, with the synthetic registry's balances)
+   through `engine/fork_choice.ghost_head_batch` at V = 2**20, launch counts
+   zeroed before each part and read after it (one launch of each of K15-K18
+   a part): (a) the 512-block tree, one snapshot; (b) 8 snapshots with V/8
+   votes swung between the two tips, every other one boosted, in one group
+   (the heads must take both tips); (c) 8,192 blocks, 256 epochs without
+   finality (boost off: `host_head`'s boost walk is quadratic). Every head
+   equals `host_head`; every stage output of K15-K18 is bit-equal to
+   `ghost_head_parts` on the same card tensors; (a)'s head also equals the
+   plain version's on CPU copies, and (c) is held again at V = 2**16;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -70,7 +81,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and 65 and its batch at 256); K13 at (128, 64) and (512, 255), K14 and
    K10's aggregate over a 512-key committee, each bit-equal to its plain
    version there, their least time from the cost functions' point
-   operations.
+   operations; K15-K18 at the three fork-choice parts' shapes, their least
+   time from the bytes read and written once or the operations the data
+   needs, and K16 beside `index_add_`.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -104,6 +117,12 @@ HBM_BYTES_PER_S = 3.35e12
 LANE_INSTR_PER_S = 132 * 128 * 1.98e9
 BLS_KERNELS = ("fp_ops", "rlc_ladders", "point_sums", "miller_loop", "final_exp")
 MSM_KERNELS = ("g1_msm", "g1_subgroup")
+FC_KERNELS = ("fc_ancestors", "fc_vote_weights", "fc_subtree", "fc_head_walk")
+FC_BLOCKS = 512         # the fork-choice bench's default storm tree
+FC_LONG_BLOCKS = 8192   # a block a slot for 256 epochs without finality
+FC_BATCH = 8
+FC_SEED = 1             # the batch's swings (Storm.perturbed)
+FC_V_SMALL = 1 << 16    # the long tree's second vote set
 
 
 class SmokeFailure(RuntimeError):
@@ -785,6 +804,193 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
     return out, rows["point_sums"][0]
 
 
+# the stage outputs of ops/forkchoice.py each kernel produces
+FC_OUTPUTS = {"anc": "fc_ancestors", "direct": "fc_vote_weights", "weight": "fc_subtree",
+              "viable": "fc_subtree", "filtered": "fc_head_walk", "head": "fc_head_walk"}
+
+
+def check_fc_stages(tensors, err, label) -> dict:
+    """K15-K18 through `ghost_head_stages` beside `ghost_head_parts` (the
+    plain versions) on the same card tensors: every stage output bit-equal.
+    Uncounted. Returns the plain parts."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import forkchoice as fco
+
+    with Aside():
+        got = fco.ghost_head_stages(*tensors)
+        want = fco.ghost_head_parts(*tensors)
+        torch.cuda.synchronize()
+    for key, kernel in FC_OUTPUTS.items():
+        err[kernel] = max(err[kernel], max_abs_err(got[key], want[key]))
+        require(torch.equal(got[key], want[key]),
+                f"{kernel} ({label}): {key} differs from its plain version")
+    return want
+
+
+def forkchoice_main_path(dev, err) -> tuple:
+    """Phase 5d: the LMD-GHOST head through `ghost_head_batch` at V = 2**20,
+    launch counts zeroed just before each part and read just after: (a) the
+    storm tree of 512 blocks, one snapshot; (b) 8 vote-swung snapshots of it
+    in one group (heads on both tips, proposer boost on every other one);
+    (c) 8,192 blocks, a chain 256 epochs long without finality. Every head
+    equals `host_head`, every kernel's output its plain version's; (a)'s head
+    also the plain version's on CPU copies, (c) again with its first 2**16
+    votes. The parts are timed warm: a first call of (a), uncounted, loads
+    the library and is timed on its own. Returns (metrics, launches by
+    part, {part: (tensors, plain parts)})."""
+    import dataclasses
+
+    import torch
+
+    from consensus_specs_tpu_torch.engine import fork_choice as fce
+    from consensus_specs_tpu_torch.forkchoice import host_head, synthetic
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import forkchoice as fco
+
+    t0 = time.perf_counter()
+    storm = synthetic.build_storm(FC_BLOCKS, N_MAIN)
+    head_snap = storm.mirror.snapshot()
+    batch = storm.perturbed(FC_BATCH, FC_SEED)
+    long_storm = synthetic.build_storm(FC_LONG_BLOCKS, N_MAIN)
+    long_snap = long_storm.mirror.snapshot()
+    t1 = time.perf_counter()
+    paths = {"head": [head_snap], "batch8": batch, "nonfinal": [long_snap]}
+    oracle = {name: [host_head(s) for s in snaps] for name, snaps in paths.items()}
+    print(f"fork-choice inputs: storm trees of {FC_BLOCKS} and {FC_LONG_BLOCKS} blocks, "
+          f"{N_MAIN} votes, {FC_BATCH} swung snapshots in {t1 - t0:.1f} s; host_head for "
+          f"{sum(map(len, paths.values()))} snapshots in {time.perf_counter() - t1:.1f} s (host)",
+          flush=True)
+    out, launches, shapes = {}, {}, {}
+    with Aside():  # the path's first call loads the kernels' library; not counted
+        _, out["fc_first_call_ms"], out["fc_first_call_wall_ms"] = timed(
+            lambda: fce.ghost_head_batch(paths["head"], dev))
+    for name, snaps in paths.items():
+        torch.cuda.synchronize()
+        build.reset_launches()
+        heads, out[f"fc_{name}_ms"], out[f"fc_{name}_wall_ms"] = timed(
+            lambda snaps=snaps: fce.ghost_head_batch(snaps, dev))
+        launches[name] = {k: v for k, v in build.LAUNCHES.items() if v}
+        require(launches[name] == dict.fromkeys(FC_KERNELS, 1),
+                f"fork choice ({name}) launched {launches[name]}, not one of each of K15-K18")
+        require(heads.tolist() == oracle[name],
+                f"fork choice ({name}): heads {heads.tolist()} != host_head {oracle[name]}")
+        [(_, _, tensors)] = fce.group_tensors(snaps, dev)
+        want = check_fc_stages(tensors, err, name)
+        require(want["head"][:len(snaps)].tolist() == heads.tolist(), f"{name}: plain head")
+        shapes[name] = (tensors, want)
+    cpu_head = fco.ghost_head_plain(*(t.cpu() for t in shapes["head"][0]))
+    require(cpu_head.tolist() == oracle["head"], "the plain head on CPU copies differs")
+    tips = storm.tips
+    boosted = [k for k, s in enumerate(batch) if s.boost_idx >= 0]
+    unboosted = [host_head(dataclasses.replace(batch[k], boost_idx=-1)) for k in boosted]
+    require(set(oracle["batch8"]) == set(tips) and boosted,
+            f"the batch's heads {oracle['batch8']} must flip between the tips {tips}, with "
+            "a proposer boost")
+    out["batch8_heads"] = oracle["batch8"]
+    out["batch8_boost_flips"] = sum(oracle["batch8"][k] != h for k, h in zip(boosted, unboosted))
+    small = dataclasses.replace(long_snap, votes=long_snap.votes[:FC_V_SMALL].copy(),
+                                balances=long_snap.balances[:FC_V_SMALL].copy())
+    with Aside():
+        heads = fce.ghost_head_batch([small], dev)
+    [(_, _, tensors)] = fce.group_tensors([small], dev)
+    check_fc_stages(tensors, err, f"nonfinal V={FC_V_SMALL}")
+    require(heads.tolist() == [host_head(small)], "the long tree's head at V = 2**16")
+    out["nonfinal_depth"] = int(long_snap.slots[oracle["nonfinal"][0]])
+    print(f"fork choice: head of {FC_BLOCKS} blocks = host_head = the plain head on CPU copies; "
+          f"{FC_BATCH} swung snapshots' heads {oracle['batch8']} (tips {tips}; {len(boosted)} "
+          f"boosted, {out['batch8_boost_flips']} of them moved by the boost); {FC_LONG_BLOCKS} "
+          f"blocks: head at slot {out['nonfinal_depth']} = host_head, again at V = "
+          f"{FC_V_SMALL}; K15-K18 bit-equal to their plain versions in every part", flush=True)
+    return out, launches, shapes
+
+
+def forkchoice_rows(shapes, launches, err) -> list:
+    """K15-K18 timed beside their plain versions at the three parts' shapes.
+    Least time: the bytes each input is read and each output written once
+    (and, as `bound_ms_doubling`, K15's bitsets re-read at each doubling
+    step), or the operations this data needs: K15's word ORs,
+    K16's adds, K17's adds (one a set bit of the bitsets), K18's 10 compares a
+    block plus one step a level of the walk. K16's library call:
+    `index_add_` of the live votes' balances (exact int64)."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import forkchoice as fco
+
+    def bound(ops, nbytes, **extra):
+        t_ops, t_bytes = ops / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+        return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes", ops=ops,
+                    bytes=nbytes, **extra)
+
+    rows = {}
+    with Aside():
+        for label, (t, want) in shapes.items():
+            parent, root_words, ck_epochs, ck_rids, is_real, votes, balances, idx_s, ep_s = t
+            q, b = parent.shape
+            v = votes.shape[1]
+            w, levels = fco.n_words(b), fco.doubling_levels(b)
+            anc, direct, weight, viable = (want[k] for k in ("anc", "direct", "weight", "viable"))
+            bits = fco.unpack_bits(anc, b)
+            set_bits = int(bits.sum())
+            rows_q = torch.arange(q, device=anc.device)
+            walk = int((bits[rows_q, want["head"].long()].sum(1)
+                        - bits[rows_q, idx_s[:, 0].long()].sum(1)).sum())
+            del bits
+            live = (votes >= 0) & (votes < b)
+            flat = (rows_q[:, None] * b + votes.long())[live]
+            live_bal = balances[live]
+            shape = f"B={b} V={v} Q={q}"
+            calls = {
+                "fc_ancestors": (lambda: fco.ancestors(parent), lambda: fco.ancestors_plain(parent),
+                                 bound(q * levels * b * w, q * (4 * b + 4 * b * w),
+                                       bound_ms_doubling=1e3 * q * (levels * 4 * b * w + 4 * b * w)
+                                       / HBM_BYTES_PER_S), None),
+                "fc_vote_weights": (lambda: fco.vote_weights(votes, balances, b),
+                                    lambda: fco.vote_weights_plain(votes, balances, b),
+                                    bound(q * v, q * (12 * v + 8 * b)),
+                                    lambda: torch.zeros(q * b, dtype=torch.int64,
+                                                        device=votes.device).index_add_(
+                                        0, flat, live_bal)),
+                "fc_subtree": (lambda: fco.subtree(anc, direct, parent, ck_epochs, ck_rids, is_real,
+                                                   idx_s, ep_s),
+                               lambda: fco.subtree_plain(anc, direct, parent, ck_epochs, ck_rids,
+                                                         is_real, idx_s, ep_s),
+                               bound(set_bits, q * (4 * b * w + 37 * b + 48) + q * 9 * b), None),
+                "fc_head_walk": (lambda: fco.head_walk(anc, weight, viable, parent, root_words,
+                                                       is_real, idx_s),
+                                 lambda: fco.head_walk_plain(anc, weight, viable, parent,
+                                                             root_words, is_real, idx_s),
+                                 bound(q * 10 * b + walk, q * (82 * b + 16) + q * (b + 4)), None),
+            }
+            for name, (kernel, plain, bnd, library) in calls.items():
+                plain_ms = time_ms(plain, 1)
+                ms = time_ms(kernel, 20)
+                library_ms = time_ms(library, 20) if library else None
+                if library:
+                    require(torch.equal(library().view(q, b), direct), "index_add_ != K16's plain")
+                rows.setdefault(name, []).append(dict(shape=shape, part=label, ms=ms,
+                                                      plain_ms=plain_ms, library_ms=library_ms,
+                                                      **bnd))
+                print(f"kernel {name} ({shape}): ms={ms:.5f} bound_ms={bnd['bound_ms']:.6f} "
+                      f"({bnd['bound_by']}) plain_ms={plain_ms:.3f} library_ms={library_ms}",
+                      flush=True)
+    out = []
+    for name in FC_KERNELS:
+        first, *more = rows[name]
+        total = sum(part.get(name, 0) for part in launches.values())
+        why = (None if name == "fc_vote_weights" else
+               "no PyTorch call computes ancestor bitsets, subtree sums over them, the FFG "
+               "filter or the greedy walk")
+        out.append(dict(name=name, route="cuda",
+                        source="consensus_specs_tpu_torch/csrc/forkchoice.cu",
+                        replaces="consensus_specs_tpu/ops/forkchoice_jax.py:54",
+                        launches=total, max_abs_err=err[name], bit_equal=err[name] == 0.0,
+                        library_null_reason=why, ms_over_bound=first["ms"] / first["bound_ms"],
+                        **first, **{r["shape"]: r for r in more}))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1036,7 +1242,7 @@ def main() -> int:
           f"launches={launches} max_memory_allocated={peak} (beside it the BLS stacks' "
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
-        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS,
+        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -1143,6 +1349,12 @@ def main() -> int:
     print("msm main path: " + " ".join(f"{k}={v:.4f}" for k, v in msm_out.items()
                                        if k.endswith("_ms"))
           + f" launches={msm_parts}", flush=True)
+
+    # 5d. the fork-choice head at V = 2**20: the storm, a batch of 8, 8,192 blocks
+    fc_out, fc_parts, fc_shapes = forkchoice_main_path(dev, err)
+    print("fork choice main path: " + " ".join(f"{k}={v:.4f}" for k, v in fc_out.items()
+                                               if k.endswith("_ms"))
+          + f" launches={fc_parts}", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -1268,6 +1480,7 @@ def main() -> int:
         if row["name"] == "point_sums":
             row[aggregate_row["shape"]] = dict(aggregate_row, launches=msm_launches["point_sums"])
     rows += new_rows
+    rows += forkchoice_rows(fc_shapes, fc_parts, err)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -1280,7 +1493,8 @@ def main() -> int:
         "historical_batch_root": dict(ms=hist_ms, plain_ms=hist_plain_ms, hashes=hist_hashes,
                                       **bound(sass["sha256_64b"] * hist_hashes, 2 * 8192 * 32
                                               + 32))},
-        "bls_path": bls_out, "msm_path": dict(msm_out, launches=msm_parts)}))
+        "bls_path": bls_out, "msm_path": dict(msm_out, launches=msm_parts),
+        "forkchoice_path": dict(fc_out, launches=fc_parts)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -12,6 +12,9 @@ JAX's (re, im) tuple and the port's (..., 2, 12); an Fp12 JAX's six Fp2
 coefficients and the port's (..., 12, 12). JAX's RNS backend (its default)
 has another layout: its values cross as canonical ints (its own
 `mont_batch_to_ints`) and `fp.ints_to_mont_words`.
+
+A fork-choice StoreSnapshot has the same numpy fields in both packages
+(`snapshot_from_jax`).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..forkchoice.mirror import StoreSnapshot
 from ..utils.device import resolve_device
 from .state import EpochConfig, EpochState
 
@@ -88,3 +92,13 @@ def f12_from_jax(f) -> torch.Tensor:
 
 def f12_to_jax(words: torch.Tensor) -> tuple:
     return tuple(f2_to_jax(words[..., 2 * k:2 * k + 2, :]) for k in range(6))
+
+
+def snapshot_from_jax(snap):
+    """A JAX-package forkchoice StoreSnapshot (numpy fields) -> the port's
+    StoreSnapshot with the same values (arrays copied)."""
+    fields = {}
+    for f in dataclasses.fields(StoreSnapshot):
+        value = getattr(snap, f.name)
+        fields[f.name] = np.array(value) if isinstance(value, np.ndarray) else value
+    return StoreSnapshot(**fields)

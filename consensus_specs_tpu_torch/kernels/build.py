@@ -30,14 +30,16 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("sha256", "state_root", "epoch", "shuffle", "incremental_root", "fp", "rlc",
-           "pairing", "msm")
+           "pairing", "msm", "forkchoice")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep": 0,
                             "sha256_1block": 0, "shuffle_rounds": 0, "dirty_scan": 0,
                             "path_fold": 0, "fp_ops": 0, "rlc_ladders": 0, "point_sums": 0,
-                            "miller_loop": 0, "final_exp": 0, "g1_msm": 0, "g1_subgroup": 0}
+                            "miller_loop": 0, "final_exp": 0, "g1_msm": 0, "g1_subgroup": 0,
+                            "fc_ancestors": 0, "fc_vote_weights": 0, "fc_subtree": 0,
+                            "fc_head_walk": 0}
 
 
 def count_launch(name: str) -> None:

@@ -12,13 +12,16 @@ the BLS flushes of one block (131 checks) and of one slot's gossip
 aggregates (1024 checks), from `crypto/bls_synthetic.flush_inputs(0)`
 after one warm-up flush each, the block's cold committee-key aggregation
 (129 FastAggregateVerify calls over 66,048 keys, key caches cleared,
-signatures decompressed before) and the KZG sample batch at 128 blobs
-(`crypto/msm_synthetic`, seed 0). For each window it prints the
+signatures decompressed before), the KZG sample batch at 128 blobs
+(`crypto/msm_synthetic`, seed 0) and the fork-choice head at V = N
+(`forkchoice/synthetic`: one snapshot of the 512-block storm tree, a batch
+of 8 swung snapshots, one of 8,192 blocks; each after a warm-up call). For
+each window it prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
 activities that took the most device time. The last windows run the K
-epochs, the gossip flush, the cold aggregation and the KZG batch under
-cProfile and print the host functions with the most own time. Needs a
+epochs, the gossip flush, the cold aggregation, the KZG batch and the
+fork-choice batch of 8 under cProfile and print the host functions with the most own time. Needs a
 card; without one it exits nonzero.
 """
 from __future__ import annotations
@@ -60,10 +63,12 @@ def main(argv=None) -> int:
         print("profile_main_path: needs an NVIDIA card", file=sys.stderr)
         return 2
     from .crypto import bls_synthetic, bls_torch, kzg_batch, msm_synthetic
+    from .engine.fork_choice import ghost_head_batch
     from .engine.resident import ResidentEpochLoop
     from .engine.state import EpochConfig
     from .engine.sync_committee import sync_committee_for_state
     from .engine.synthetic import synthetic_epoch_state
+    from .forkchoice import synthetic as fc_synthetic
     from .kernels import build
 
     build.build_all()
@@ -123,6 +128,17 @@ def main(argv=None) -> int:
 
     kzg_samples()
 
+    storm = fc_synthetic.build_storm(512, args.n)
+    fc_head = [storm.mirror.snapshot()]
+    fc_batch = storm.perturbed(8, 1)
+    fc_long = [fc_synthetic.build_storm(8192, args.n).mirror.snapshot()]
+
+    def fc_heads(snaps):
+        return lambda: ghost_head_batch(snaps, dev)
+
+    for snaps in (fc_head, fc_batch, fc_long):
+        fc_heads(snaps)()
+
     print(f"card: {torch.cuda.get_device_name(0)}; N={args.n}")
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
                       ("field_roots", lambda: loop.field_roots(static01)),
@@ -131,7 +147,10 @@ def main(argv=None) -> int:
                       (f"BLS block flush ({len(block)} checks)", block_flush),
                       (f"BLS gossip flush ({len(gossip)} checks)", gossip_flush),
                       (f"cold key aggregation ({len(agg_in['calls'])} calls)", cold_aggregation),
-                      (f"KZG sample batch ({len(kzg_in['samples'])} blobs)", kzg_samples)):
+                      (f"KZG sample batch ({len(kzg_in['samples'])} blobs)", kzg_samples),
+                      ("fork-choice head (512 blocks)", fc_heads(fc_head)),
+                      ("fork-choice batch of 8 (512 blocks)", fc_heads(fc_batch)),
+                      ("fork-choice head (8192 blocks)", fc_heads(fc_long))):
         wall_us, rows = _profile(fn, torch)
         device_us = sum(r[2] for r in rows)
         if not rows:
@@ -150,7 +169,8 @@ def main(argv=None) -> int:
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
                       ("the BLS gossip flush", gossip_flush),
                       ("the cold key aggregation", cold_aggregation),
-                      ("the KZG sample batch", kzg_samples)):
+                      ("the KZG sample batch", kzg_samples),
+                      ("the fork-choice batch of 8", fc_heads(fc_batch))):
         torch.cuda.synchronize()
         prof = cProfile.Profile()
         prof.enable()

@@ -10,6 +10,7 @@ machine with a card and no JAX; there, without this repo's conftest
 Without a card every test skips with its reason (decided in the fixture).
 """
 import hashlib
+import random
 
 import numpy as np
 import pytest
@@ -18,7 +19,9 @@ import torch
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_oracle
 from consensus_specs_tpu_torch.crypto import bls_torch
 from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
+from consensus_specs_tpu_torch import forkchoice as tfc
 from consensus_specs_tpu_torch.engine import epoch as tepoch
+from consensus_specs_tpu_torch.engine import fork_choice as tfc_engine
 from consensus_specs_tpu_torch.engine import incremental_root as tinc
 from consensus_specs_tpu_torch.engine import state_root as troot
 from consensus_specs_tpu_torch.engine import sync_committee as tsync
@@ -32,6 +35,8 @@ from consensus_specs_tpu_torch.engine.synthetic import (
 )
 from consensus_specs_tpu_torch.kernels import build
 from consensus_specs_tpu_torch.ops import bls12 as tbls
+from consensus_specs_tpu_torch.forkchoice import synthetic as tfc_synthetic
+from consensus_specs_tpu_torch.ops import forkchoice as tfc_ops
 from consensus_specs_tpu_torch.ops import fp as tfp
 from consensus_specs_tpu_torch.ops import sha256 as tsha
 from consensus_specs_tpu_torch.ops import shuffle as tshuffle
@@ -466,3 +471,99 @@ def test_device_key_aggregation_on_card(cuda):
         pks[:39] + [bls_oracle.g1_to_bytes((0, 2))], cuda) == (
         "bad_encoding", "G1 point not in r-subgroup")
     bls_torch.clear_caches()
+
+
+# --- the fork-choice head (K15-K18) ---------------------------------------------------
+
+FC_KERNELS = ("fc_ancestors", "fc_vote_weights", "fc_subtree", "fc_head_walk")
+
+
+def _fc_mirror(seed, nb, nv):
+    """A seeded random tree in the port's StoreMirror: random branching (so a
+    shallow tree), mixed per-block checkpoints (some leaves disagree with the
+    store), 16-32 ETH balances, 70 % participation, a boost on odd seeds."""
+    rng = random.Random(seed)
+    m = tfc.StoreMirror()
+    anchor = rng.randbytes(32)
+    ck = (0, anchor)
+    m.add_block(anchor, anchor, 0, justified=ck, finalized=ck)
+    roots, slots = [anchor], {anchor: 0}
+    for _ in range(nb - 1):
+        parent = roots[rng.randrange(len(roots))]
+        root = rng.randbytes(32)
+        slots[root] = slots[parent] + rng.randrange(1, 3)
+        jc = ck if rng.random() < 0.8 else (1, roots[0])
+        m.add_block(root, parent, slots[root], justified=jc, finalized=ck)
+        roots.append(root)
+    nprng = np.random.default_rng(seed)
+    m.set_registry(nprng.integers(16, 33, nv, dtype=np.int64) * 10**9)
+    for k in range(min(nb, 64)):  # every vote on one of 64 random blocks
+        pick = np.flatnonzero(nprng.integers(0, 64, nv) == k)
+        pick = pick[nprng.random(pick.size) < 0.7]
+        m.set_votes(pick, roots[rng.randrange(len(roots))])
+    m.set_checkpoints((seed % 2, anchor), ck)
+    if seed % 2:
+        m.set_boost(roots[rng.randrange(len(roots))], 3 * 10**11)
+    return m
+
+
+def _fc_cases(case):
+    if case.startswith("storm"):
+        storm = tfc_synthetic.build_storm(int(case[5:]), 1 << 16)
+        return [storm.mirror.snapshot()] + storm.perturbed(2, 3)
+    nb, nv = (int(x) for x in case.split("x"))
+    return [_fc_mirror(seed, nb, nv).snapshot() for seed in range(3)]
+
+
+@pytest.mark.parametrize("case", ["5x40", "300x5000", "storm512", "8000x65536", "storm8192",
+                                  "9000x4096"])
+def test_forkchoice_kernels_match_plain(cuda, case):
+    """K15-K18 each bit-equal to its plain version on the card, on the same
+    inputs (B = 8, 512, 8192 and 16384, the last through global scratch);
+    votes outside [0, B) are skipped; heads = the host oracle's."""
+    snaps = _fc_cases(case)
+    [(_, members, batch)] = tfc_engine.group_tensors(snaps, cuda)
+    parent, root_words, ck_epochs, ck_rids, is_real, votes, balances, idx_s, ep_s = batch
+    votes[0, :3] = torch.tensor([-1, -7, parent.shape[1] + 3], dtype=torch.int32)
+    want = tfc_ops.ghost_head_parts(*batch)
+    b = parent.shape[1]
+    with _counted("fc_ancestors"):
+        anc = tfc_ops.ancestors(parent)
+    with _counted("fc_vote_weights"):
+        direct = tfc_ops.vote_weights(votes, balances, b)
+    with _counted("fc_subtree"):
+        weight, viable = tfc_ops.subtree(anc, direct, parent, ck_epochs, ck_rids, is_real, idx_s,
+                                         ep_s)
+    with _counted("fc_head_walk"):
+        filtered, head = tfc_ops.head_walk(anc, weight, viable, parent, root_words, is_real,
+                                           idx_s)
+    for name, got in (("anc", anc), ("direct", direct), ("weight", weight),
+                      ("viable", viable), ("filtered", filtered), ("head", head)):
+        assert torch.equal(got, want[name]), name
+    heads = tfc_engine.ghost_head_batch(snaps[1:], cuda)
+    assert heads.tolist() == [tfc.host_head(s) for s in snaps[1:]]
+    assert len(members) == len(snaps)
+
+
+def test_forkchoice_batch_launches_once_a_kernel(cuda):
+    """One ghost_head_batch over three snapshots of one bucket: one launch of
+    each of K15-K18; two buckets: two of each."""
+    snaps = [_fc_mirror(seed, 40, 300).snapshot() for seed in range(3)]
+    before = dict(build.LAUNCHES)
+    heads = tfc_engine.ghost_head_batch(snaps, cuda)
+    assert {k: build.LAUNCHES[k] - before[k] for k in FC_KERNELS} == dict.fromkeys(FC_KERNELS, 1)
+    assert heads.tolist() == [tfc.host_head(s) for s in snaps]
+    snaps.append(_fc_mirror(7, 200, 300).snapshot())
+    before = dict(build.LAUNCHES)
+    heads = tfc_engine.ghost_head_batch(snaps, cuda)
+    assert {k: build.LAUNCHES[k] - before[k] for k in FC_KERNELS} == dict.fromkeys(FC_KERNELS, 2)
+    assert heads.tolist() == [tfc.host_head(s) for s in snaps]
+
+
+def test_forkchoice_kernels_check_their_inputs(cuda):
+    parent = torch.arange(8, dtype=torch.int64, device=cuda)[None]
+    with pytest.raises(ValueError):
+        tfc_ops.ancestors(parent)
+    votes = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        tfc_ops.vote_weights(votes, torch.zeros((1, 64), dtype=torch.int32, device=cuda), 8)
