@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG and
-fork-choice paths on one NVIDIA card.
+"""Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG,
+fork-choice and spec state-transition paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -24,7 +24,8 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    copied oracle; K13 g1_msm on 8 items (64- and 255-bit scalars, windows 4
    and 5, a zero scalar, 2^64 - 1, a repeated point, a P + (-P) pair) and
    K14 g1_subgroup on 8 points (a pad and the on-curve (0, 2) outside the
-   subgroup);
+   subgroup); K19 tree_root_batch at (K, C) = (1, 16384), (64, 1024),
+   (256, 64), (1, 1) and (2, 2) (and the first against a hashlib fold);
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -70,6 +71,27 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    equals `host_head`; every stage output of K15-K18 is bit-equal to
    `ghost_head_parts` on the same card tensors; (a)'s head also equals the
    plain version's on CPU copies, and (c) is held again at V = 2**16;
+5e. the spec's own `state_transition` (`spec_main_path`): the port's
+   compiled altair mainnet spec, routed through the port's bridge
+   (`engine/routing.routed_spec`) with `get_total_active_balance` memoized
+   (`memoized_total_active_balance`), the BLS shim on the card, N = 2**20
+   validators with real keys (`testlib/big_state`, secret key i + 1) at slot
+   8188; a proposer state builds and signs the blocks of slots 8189-8193
+   (RANDAO reveal, a full sync aggregate of 512, two attestation committees
+   of 512 from the slot before) and an importer state applies each with
+   `state_transition(..., validate_result=True)` under
+   `deferred_verification()`, one flush a block. Slot 8191 -> 8192 crosses
+   epoch 256: the historical append (K19), the eth1 reset and the
+   sync-committee rotation (K4, K5, KeyValidate, K10). Launch counts are
+   zeroed before the first block and read after the last (K19, K3, K4,
+   K5, K10, K11, K12 must have run). Then, uncounted: the importer's device
+   epoch equals the plain epoch on CPU copies of its input, the appended
+   root equals `historical_batch_root` and a hashlib fold, the new sync
+   committee's aggregate key equals [sum sk]·G1, the device-assembled state
+   root (`assemble_state_root` over `field_roots`) equals the port ssz's
+   root, and a tampered twin (one sync-aggregate signature altered) is
+   rejected by its flush. It prints `spec_block_ms`, `spec_root_ms`,
+   `spec_epoch_ms` with the bridge's stages, and the host set-up times;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -83,7 +105,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    version there, their least time from the cost functions' point
    operations; K15-K18 at the three fork-choice parts' shapes, their least
    time from the bytes read and written once or the operations the data
-   needs, and K16 beside `index_add_`.
+   needs, and K16 beside `index_add_`; K19 at the historical append's
+   (1, 16384) (the epoch's own vectors) and the Merkle lane's (64, 1024)
+   and (256, 64), its least time K*(C-1) hashes of K1's SASS instructions.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -123,6 +147,13 @@ FC_LONG_BLOCKS = 8192   # a block a slot for 256 epochs without finality
 FC_BATCH = 8
 FC_SEED = 1             # the batch's swings (Storm.perturbed)
 FC_V_SMALL = 1 << 16    # the long tree's second vote set
+SPEC_N = 1 << 20        # the spec phase's registry
+SPEC_START = 256 * 32 - 4  # the state's slot: the blocks run up to and across epoch 256
+SPEC_SLOTS = (8189, 8190, 8191, 8192, 8193)
+SPEC_COMMITTEES = (0, 1)  # attestation committees a block, from the slot before
+SPEC_KERNELS = ("tree_root_batch", "epoch_sweep", "sha256_1block", "shuffle_rounds",
+                "point_sums", "miller_loop", "final_exp")
+K19_SHAPES = ((1, 16384), (64, 1024), (256, 64), (1, 1), (2, 2))
 
 
 class SmokeFailure(RuntimeError):
@@ -991,6 +1022,174 @@ def forkchoice_rows(shapes, launches, err) -> list:
     return out
 
 
+def check_tree_root_kernel(dev, rng, err) -> None:
+    """K19 bit-equal to its plain version at the historical append's shape,
+    the Merkle lane's buckets and the edges; the append's shape also against
+    a hashlib fold."""
+    import torch
+
+    from consensus_specs_tpu_torch.engine import state_root as troot
+    from consensus_specs_tpu_torch.ops.sha256_host import merkle_root_hashlib, words_to_bytes
+
+    for k, c in K19_SHAPES:
+        chunks = rand_words(rng, (k, c, 8), dev)
+        got = troot.tree_root_batch(chunks)
+        plain = troot.tree_root_batch_plain(chunks)
+        torch.cuda.synchronize()
+        err["tree_root_batch"] = max(err["tree_root_batch"], max_abs_err(got, plain))
+        require(torch.equal(got, plain), f"K19 tree_root_batch ({k}, {c}) differs from its plain "
+                "version")
+        if (k, c) == K19_SHAPES[0]:
+            require(words_to_bytes(got[0].cpu().numpy()) == merkle_root_hashlib(
+                [words_to_bytes(r) for r in chunks[0].cpu().numpy()]), "K19 root != hashlib")
+    print(f"check K19 tree_root_batch: {K19_SHAPES} bit-equal, (1, 16384) = hashlib")
+
+
+def spec_main_path(dev) -> tuple:
+    """The spec's own `state_transition` at N = 2**20 (the port's compiled
+    altair mainnet spec, routed through the port's bridge, the BLS shim on
+    the card): a proposer state builds and signs each block of SPEC_SLOTS
+    (RANDAO reveal, a full sync aggregate of 512, the attestations of
+    SPEC_COMMITTEES from the slot before; aggregate signatures [sum sk]·H(m)),
+    an importer state applies it with `state_transition(...,
+    validate_result=True)` under `deferred_verification()`. Slot 8191 ->
+    8192 crosses epoch 256: historical append (K19), eth1 reset, rotation.
+    Launch counts are zeroed before the first block and read after the last;
+    the checks after it are not counted. Returns (metrics, launches, the
+    append's (1, 16384) chunks)."""
+    import statistics
+
+    import torch
+
+    from consensus_specs_tpu_torch.compiler import build_spec
+    from consensus_specs_tpu_torch.crypto import bls
+    from consensus_specs_tpu_torch.engine import bridge
+    from consensus_specs_tpu_torch.engine import epoch as tepoch
+    from consensus_specs_tpu_torch.engine import state_root as troot
+    from consensus_specs_tpu_torch.engine.routing import memoized_total_active_balance, routed_spec
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops.sha256_host import merkle_root_hashlib, words_to_bytes
+    from consensus_specs_tpu_torch.testlib import big_state
+    from consensus_specs_tpu_torch.testlib import block as tblock
+
+    out = {}
+    spec = build_spec("altair", "mainnet", device=dev)
+    bls.use_device("cuda")
+    bls.bls_active = True
+    t0 = time.perf_counter()
+    keys = big_state.real_pubkeys(SPEC_N)
+    out["key_gen_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    imp = big_state.synthetic_beacon_state(spec, SPEC_N, slot=SPEC_START, pubkeys=keys)
+    out["state_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec.hash_tree_root(imp)
+    out["first_root_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prop = imp.copy()
+    out["state_copy_s"] = time.perf_counter() - t0
+    print(f"spec inputs: N={SPEC_N} real keys in {out['key_gen_s']:.1f} s, state built in "
+          f"{out['state_build_s']:.1f} s, first root {out['first_root_s']:.1f} s, proposer "
+          f"copy {out['state_copy_s']:.1f} s (host)", flush=True)
+
+    stages = []  # one {stage: seconds} a bridge call, in call order
+
+    def stage_timer(name):
+        now = time.perf_counter()
+        if name == "start":
+            stages.append({"_last": now})
+        else:
+            stages[-1][name] = now - stages[-1]["_last"]
+            stages[-1]["_last"] = now
+
+    capture = {}
+    block_ms, root_ms = [], []
+    pre_next = bytes(imp.next_sync_committee.hash_tree_root())
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with routed_spec(spec, device=dev, stage_timer=stage_timer, capture=capture), \
+            memoized_total_active_balance(spec):
+        for slot in SPEC_SLOTS:
+            tm = {}
+            signed = tblock.propose_block(spec, prop, slot, SPEC_COMMITTEES, timings=tm)
+            root_ms.append(1e3 * tm["root_s"])
+            flushes0 = bls.flush_count
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with bls.deferred_verification():
+                spec.state_transition(imp, signed, validate_result=True)
+            torch.cuda.synchronize()
+            block_ms.append(1e3 * (time.perf_counter() - t0))
+            require(bls.flush_count == flushes0 + 1, f"block {slot}: not one flush")
+            print(f"spec block {slot}: applied in {block_ms[-1]:.1f} ms, proposer root "
+                  f"{root_ms[-1]:.1f} ms", flush=True)
+        launches = dict(build.LAUNCHES)
+        for name in SPEC_KERNELS:
+            require(launches[name] > 0, f"the spec path never launched {name}")
+
+        # checks, uncounted: the epoch against the plain version on CPU copies,
+        # the append against K1's batch root and hashlib, the rotation, and the
+        # device-assembled state root against the port ssz's
+        st = imp
+        with Aside():
+            cfg, pre, post = capture["cfg"], capture["pre"], capture["post"]
+            cpu_pre = type(pre)(**{k: v.cpu() for k, v in pre.items()})
+            ref, ref_aux = tepoch.process_epoch_plain(cfg, cpu_pre)
+            bad = [k for k, t in post.items() if not torch.equal(t.cpu(), getattr(ref, k))]
+            require(not bad and torch.equal(capture["aux"].flat().cpu(), ref_aux.flat()),
+                    f"the spec path's device epoch differs from the plain epoch on {bad}")
+            flags = ref_aux.flat()[:3].tolist()
+            require(flags == [True, True, True],
+                    f"epoch 256 must fire all three epilogues: {flags}")
+            require(len(st.historical_roots) == 1, "epoch 256 must append one historical root")
+            oracle = words_to_bytes(tepoch.historical_batch_root(post.block_roots,
+                                                                post.state_roots).cpu().numpy())
+            # the vectors as the epoch saw them (later slots overwrite rows)
+            fold = hashlib.sha256(b"".join(
+                merkle_root_hashlib([words_to_bytes(r) for r in v.cpu().numpy()])
+                for v in (post.block_roots, post.state_roots))).digest()
+            require(bytes(st.historical_roots[0]) == oracle == fold,
+                    "the appended historical root differs from historical_batch_root")
+            require(bytes(st.current_sync_committee.hash_tree_root()) == pre_next,
+                    "the rotation did not move next_sync_committee to current")
+            members = [tblock.pubkey_to_privkey(pk) - 1 for pk in st.next_sync_committee.pubkeys]
+            require(bytes(st.next_sync_committee.aggregate_pubkey)
+                    == big_state.aggregate_pubkey_of(members),
+                    "the new sync committee's aggregate key differs from [sum sk]·G1")
+            dev_st, _ = bridge.state_to_device(spec, st, dev)
+            static01 = torch.from_numpy(troot.validator_static_leaves(st).view(np.int32)).to(dev)
+            assembled = troot.assemble_state_root(spec, st, troot.field_roots(dev_st, static01))
+            require(assembled == bytes(spec.hash_tree_root(st)),
+                    "the device-assembled state root differs from the port ssz's root")
+            chunks = torch.cat([post.block_roots, post.state_roots])[None].contiguous()
+        # the tampered twin: the next block with one sync-aggregate signature
+        # altered, the block otherwise valid; its flush must fail
+        def tamper(block):
+            block.body.sync_aggregate.sync_committee_signature = bls.Sign(
+                1, b"tampered sync aggregate")
+
+        with Aside():
+            signed = tblock.propose_block(spec, prop, SPEC_SLOTS[-1] + 1, SPEC_COMMITTEES,
+                                          edit=tamper)
+            try:
+                with bls.deferred_verification():
+                    spec.state_transition(imp, signed, validate_result=True)
+                rejected = False
+            except bls.BLSVerificationError:
+                rejected = True
+        require(rejected, "the tampered block passed")
+    epoch_stages = {k: 1e3 * v for k, v in stages[-1].items() if k != "_last"}
+    out.update(spec_block_ms=statistics.median(block_ms), spec_block_each_ms=block_ms,
+               spec_root_ms=statistics.median(root_ms), spec_root_each_ms=root_ms,
+               spec_epoch_ms=sum(epoch_stages.values()), spec_epoch_stages_ms=epoch_stages,
+               tampered_rejected=rejected)
+    print(f"spec path check: epoch 256's device post-state = plain epoch (CPU); historical "
+          f"root = historical_batch_root = hashlib; rotation's aggregate = [sum sk]·G1; "
+          f"assembled state root = ssz root; {len(SPEC_SLOTS)} blocks' signatures passed, "
+          f"the tampered twin rejected", flush=True)
+    return out, launches, chunks
+
+
 def main() -> int:
     import torch
 
@@ -1173,6 +1372,7 @@ def main() -> int:
           f"device memory reserved by the driver", flush=True)
     check_bls_kernels(dev, err)
     check_msm_kernels(dev, err)
+    check_tree_root_kernel(dev, rng, err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -1300,20 +1500,21 @@ def main() -> int:
           f"({cfg.sync_committee_size} of n={rotation['n_active']} active) = plain sampler; "
           f"sync_rotation_ms={rotation['ms']:.4f} (host wall {rotation['wall_ms']:.4f}; in the "
           f"loop {rotation['loop_wall_ms']:.4f})")
-    # historical_batch_root (K1 launches) beside its plain version: 2 x 8191
-    # tree nodes and the top hash, 16,383 64-byte hashes
+    # the append's oracle, historical_batch_root (27 K1 launches, the path
+    # before K19), beside its plain version: 2 x 8191 tree nodes and the top
+    # hash, 16,383 64-byte hashes; reported in the K19 row as k1_path_ms
     def batch_root(h):
         top = torch.cat([troot._vector_root_words(ref.block_roots, h),
                          troot._vector_root_words(ref.state_roots, h)])
         return h(top[None])[0]
 
     with Aside():
-        hist_ms = time_ms(lambda: tepoch.historical_batch_root(ref.block_roots, ref.state_roots),
+        k1_path_ms = time_ms(lambda: tepoch.historical_batch_root(ref.block_roots, ref.state_roots),
                           10)
-        hist_plain_ms = time_ms(lambda: batch_root(tsha.sha256_64B_words_plain), 1)
+        k1_path_plain_ms = time_ms(lambda: batch_root(tsha.sha256_64B_words_plain), 1)
         require(torch.equal(batch_root(tsha.sha256_64B_words_plain), loop.historical_roots[0]),
                 "historical batch root differs from its plain version")
-    hist_hashes = 2 * (cfg.slots_per_historical_root - 1) + 1
+    k1_path_hashes = 2 * (cfg.slots_per_historical_root - 1) + 1
     del ref, after_one, after_nine, plain_roots
 
     # 5. the BLS path: the block flush, its attribution, the gossip flush, the shim
@@ -1355,6 +1556,13 @@ def main() -> int:
     print("fork choice main path: " + " ".join(f"{k}={v:.4f}" for k, v in fc_out.items()
                                                if k.endswith("_ms"))
           + f" launches={fc_parts}", flush=True)
+
+    # 5e. the spec's state_transition at N = 2**20 across epoch 256
+    spec_out, spec_launches, k19_chunks = spec_main_path(dev)
+    print("spec main path: " + " ".join(f"{k}={v:.4f}" for k, v in spec_out.items()
+                                        if k.endswith("_ms") and not isinstance(v, (list, dict)))
+          + f" stages_ms={spec_out['spec_epoch_stages_ms']} launches="
+          f"{ {k: v for k, v in spec_launches.items() if v} }", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -1481,6 +1689,35 @@ def main() -> int:
             row[aggregate_row["shape"]] = dict(aggregate_row, launches=msm_launches["point_sums"])
     rows += new_rows
     rows += forkchoice_rows(fc_shapes, fc_parts, err)
+    # K19 at the historical append's (1, 16384) and the Merkle lane's
+    # buckets: K*(C-1) hashes of K1's instructions each, K*C rows read once
+    k19 = {}
+    with Aside():
+        for k, c in K19_SHAPES[:3]:
+            chunks = (k19_chunks if (k, c) == (1, 16384)
+                      else rand_words(rng, (k, c, 8), dev))
+            build.reset_launches()
+            troot.tree_root_batch(chunks)
+            k19[(k, c)] = dict(
+                shape=f"K={k} C={c}", launches_a_call=build.LAUNCHES["tree_root_batch"],
+                ms=time_ms(lambda: troot.tree_root_batch(chunks), 20),
+                plain_ms=time_ms(lambda: troot.tree_root_batch_plain(chunks), 1),
+                **bound(sass["sha256_64b"] * k * (c - 1), 32 * k * c + 32 * k))
+    first, *more = k19.values()
+    rows.append(dict(name="tree_root_batch", route="cuda",
+                     source="consensus_specs_tpu_torch/csrc/tree_root.cu",
+                     replaces="consensus_specs_tpu/engine/state_root.py:114",
+                     launches=spec_launches["tree_root_batch"],
+                     max_abs_err=err["tree_root_batch"],
+                     bit_equal=err["tree_root_batch"] == 0.0, library_ms=None,
+                     library_null_reason="no PyTorch call hashes",
+                     k1_path_ms=k1_path_ms, k1_path_plain_ms=k1_path_plain_ms,
+                     k1_path_hashes=k1_path_hashes, **first,
+                     **{r["shape"]: r for r in more}))
+    for r in k19.values():
+        print(f"kernel tree_root_batch ({r['shape']}): ms={r['ms']:.5f} "
+              f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) plain_ms={r['plain_ms']:.3f} "
+              f"launches a call {r['launches_a_call']}", flush=True)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -1489,12 +1726,11 @@ def main() -> int:
         "root_refresh_wall_ms": sum(refresh_wall) / SINGLE_EPOCHS,
         "sync_rotation_ms": rotation["ms"], "sync_rotation_wall_ms": rotation["wall_ms"],
         "sync_rotation_loop_wall_ms": rotation["loop_wall_ms"], "n_active": n_rot,
-        "refreshes": refreshes, "max_memory_allocated": peak, "bls_stack": stack,
-        "historical_batch_root": dict(ms=hist_ms, plain_ms=hist_plain_ms, hashes=hist_hashes,
-                                      **bound(sass["sha256_64b"] * hist_hashes, 2 * 8192 * 32
-                                              + 32))},
+        "refreshes": refreshes, "max_memory_allocated": peak, "bls_stack": stack},
         "bls_path": bls_out, "msm_path": dict(msm_out, launches=msm_parts),
-        "forkchoice_path": dict(fc_out, launches=fc_parts)}))
+        "forkchoice_path": dict(fc_out, launches=fc_parts),
+        "spec_path": dict(spec_out, n=SPEC_N, slots=SPEC_SLOTS, committees=SPEC_COMMITTEES,
+                          launches=spec_launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,24 +17,41 @@ and Aggregate are the host oracle's.
 `device` ("cuda" unless `use_device` says otherwise) is where the flush runs;
 the CPU runs the kernels' plain versions. When `bls_active` is False every
 operation returns its stub (the spec tests' --disable-bls contract).
+
+The module carries every name of the JAX package's shim that spec code,
+test helpers and callers read, with three exceptions: `use_jax` and
+`use_py` (here `use_device`) and `FLUSH_RETRY_POLICY` (the retry lane,
+ROADMAP A4(a): a failed flush propagates). `KeyValidate` and
+`AggregatePKs` stay outside the kill switch, as there: they make state
+content (altair's `eth_aggregate_pubkeys`), not checks.
 """
 from __future__ import annotations
 
 import threading
+from functools import lru_cache as _lru_cache
 
 from . import bls_sig as _py
 from . import bls_torch
+from .hash_to_curve import MAP_TO_CURVE_RFC_COMPLIANT  # noqa: F401
 
 bls_active = True
 device = "cuda"
 
 STUB_SIGNATURE = b"\x11" * 96
+STUB_PUBKEY = b"\x22" * 48
+G2_POINT_AT_INFINITY = _py.G2_POINT_AT_INFINITY
+STUB_COORDINATES = (0, 0)
 
 
 def use_device(dev) -> None:
     """Run later flushes on `dev` ("cuda" or "cpu")."""
     global device
     device = dev
+
+
+def backend() -> str:
+    """Where flushes and large aggregates run: "cuda" or "cpu"."""
+    return str(device)
 
 
 class BLSVerificationError(AssertionError):
@@ -160,7 +177,36 @@ def Aggregate(signatures) -> bytes:
 
 @only_with_bls(alt_return=STUB_SIGNATURE)
 def Sign(privkey, message) -> bytes:
-    return _py.Sign(int(privkey), bytes(message))
+    # memoized, as the JAX package's shim: signing is deterministic, and
+    # test-vector and block-building code re-signs the same pairs. The memo
+    # holds private keys: `clear_sign_cache()` drops it.
+    return _sign_lru(int(privkey), bytes(message))
+
+
+@_lru_cache(maxsize=1 << 16)
+def _sign_lru(privkey: int, message: bytes) -> bytes:
+    return _py.Sign(privkey, message)
+
+
+def clear_sign_cache() -> None:
+    """Drop the Sign memo."""
+    _sign_lru.cache_clear()
+
+
+def clear_caches() -> None:
+    """Drop every host-side crypto cache: the Sign memo, the oracle's
+    signature points, and the device path's committee aggregates,
+    validated keys (`_PK_VALIDATED`), decoded points and hashed messages."""
+    clear_sign_cache()
+    _py.clear_sig_point_cache()
+    bls_torch.clear_caches()
+    bls_torch.g2_from_bytes.cache_clear()
+    bls_torch.hash_to_curve_g2.cache_clear()
+
+
+@only_with_bls(alt_return=STUB_COORDINATES)
+def signature_to_G2(signature):
+    return _py.signature_to_point(signature)
 
 
 @only_with_bls(alt_return=STUB_SIGNATURE)  # the JAX shim's (and eth2spec's) stub
@@ -177,3 +223,8 @@ def AggregatePKs(pubkeys) -> bytes:
         return bls_torch.aggregate_pubkeys_device(pubkeys, device)
     return _py.AggregatePKs(pubkeys)
 
+
+def KeyValidate(pubkey) -> bool:
+    """Not behind the kill-switch (see AggregatePKs): the host oracle's
+    decompression and subgroup check."""
+    return _py.KeyValidate(pubkey)

@@ -19,7 +19,8 @@ result into `state`.
     process_effective_balance_updates   K3 sweep B / _effective_balance_...
     slashings / randao resets, flag     K3 finalize / inline
     rotation, EpochAux
-    process_historical_roots_update     historical_batch_root (K1 launches)
+    process_historical_roots_update     historical_append_root (K19), with
+                                        historical_batch_root (K1) its oracle
 
 Hazards both versions handle (and the tests cover):
 - FAR_FUTURE_EPOCH = 2**64 - 1 reads as -1 in int64: every <, <=, max and
@@ -50,7 +51,7 @@ from ..ops.sha256 import sha256_64B_words
 from ..utils.device import is_cpu
 from ..utils.u64 import FAR, as_i64, as_u64, sort_key, ule, ult, umax_reduce
 from .state import DIRTY_TRACKED, EpochAux, EpochConfig, EpochState
-from .state_root import _vector_root_words
+from .state_root import _vector_root_words, tree_root_batch
 
 U64 = 2**64 - 1
 
@@ -74,6 +75,16 @@ def historical_batch_root(block_roots: torch.Tensor, state_roots: torch.Tensor) 
     top = torch.cat([_vector_root_words(block_roots, sha256_64B_words),
                      _vector_root_words(state_roots, sha256_64B_words)])
     return sha256_64B_words(top[None])[0]
+
+
+def historical_append_root(block_roots: torch.Tensor, state_roots: torch.Tensor) -> torch.Tensor:
+    """The same root as `historical_batch_root`, as the historical append
+    computes it: with SLOTS_PER_HISTORICAL_ROOT a power of two,
+    hash(root(block_roots), root(state_roots)) is the root of one tree over
+    the two vectors' concatenated rows, which kernel K19 folds in two
+    launches on CUDA (engine/bridge.py:49 of the JAX package sends the same
+    tree through its Merkle lane's `tree_root_batch`)."""
+    return tree_root_batch(torch.cat([block_roots, state_roots])[None])[0]
 
 
 # ---------------------------------------------------------------------------

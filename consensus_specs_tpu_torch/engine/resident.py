@@ -5,9 +5,10 @@ only the 15 aux flags, copied into pinned host memory with a non-blocking
 copy right behind the launch that produces them, and read after the NEXT
 epoch's launch is queued, so no step waits for the device. The host
 services the flags:
-- historical_append: computes `historical_batch_root` on the device and
-  appends it to `historical_roots` (the epoch program never writes
-  block_roots/state_roots, so the late computation sees the same vectors);
+- historical_append: computes the historical batch root on the device
+  (`historical_append_root`, kernel K19) and appends it to
+  `historical_roots` (the epoch program never writes block_roots /
+  state_roots, so the late computation sees the same vectors);
 - eth1_votes_reset: counted;
 - sync_committee_update: samples the next sync committee's validator
   indices from the device columns (`engine/sync_committee.py`, K4 + K5)
@@ -36,7 +37,7 @@ import torch
 
 from ..utils.device import resolve_device
 from . import state_root
-from .epoch import historical_batch_root, make_epoch_fn
+from .epoch import historical_append_root, make_epoch_fn
 from .incremental_root import IncrementalStateRoot
 from .state import DIRTY_TRACKED, EpochConfig, EpochState
 from .sync_committee import sync_committee_for_state
@@ -127,7 +128,7 @@ class ResidentEpochLoop:
         self.dirty |= flags[3:]
         if historical_append:
             self.historical_roots.append(
-                historical_batch_root(self.state.block_roots, self.state.state_roots))
+                historical_append_root(self.state.block_roots, self.state.state_roots))
         self.eth1_votes_resets += int(eth1_reset)
         rotates = entered % self.cfg.epochs_per_sync_committee_period == 0
         if bool(sync_update) != rotates:

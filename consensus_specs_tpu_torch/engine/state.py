@@ -9,9 +9,10 @@ scalars. Types:
   patterns, the lane format of kernel K1;
 - participation flags are uint8, `slashed` and `justification_bits` bool.
 
-`EpochConfig` carries the static constants of one (fork, preset). The port
-has no spec compiler, so the four supported configurations are literals
-here; tests hold them equal to the JAX `EpochConfig.from_spec`.
+`EpochConfig` carries the static constants of one (fork, preset):
+`from_spec` reads them from a compiled spec module (the port's own
+compiler's), and the four supported configurations are also literals here;
+tests hold both equal to the JAX `EpochConfig.from_spec`.
 """
 from __future__ import annotations
 
@@ -54,6 +55,51 @@ class EpochConfig:
     epochs_per_eth1_voting_period: int
     genesis_epoch: int = 0
     far_future_epoch: int = 2**64 - 1
+
+    @classmethod
+    def from_spec(cls, spec) -> "EpochConfig":
+        """From a compiled spec module, altair or later (engine/state.py:78):
+        bellatrix and later forks take its punitive slashing multiplier and
+        inactivity penalty quotient."""
+        from ..compiler.spec_compiler import FORK_ORDER
+
+        bellatrix_plus = FORK_ORDER.index(spec.fork) >= FORK_ORDER.index("bellatrix")
+        return cls(
+            slots_per_epoch=int(spec.SLOTS_PER_EPOCH),
+            epochs_per_slashings_vector=int(spec.EPOCHS_PER_SLASHINGS_VECTOR),
+            epochs_per_historical_vector=int(spec.EPOCHS_PER_HISTORICAL_VECTOR),
+            slots_per_historical_root=int(spec.SLOTS_PER_HISTORICAL_ROOT),
+            max_effective_balance=int(spec.MAX_EFFECTIVE_BALANCE),
+            effective_balance_increment=int(spec.EFFECTIVE_BALANCE_INCREMENT),
+            base_reward_factor=int(spec.BASE_REWARD_FACTOR),
+            hysteresis_quotient=int(spec.HYSTERESIS_QUOTIENT),
+            hysteresis_downward_multiplier=int(spec.HYSTERESIS_DOWNWARD_MULTIPLIER),
+            hysteresis_upward_multiplier=int(spec.HYSTERESIS_UPWARD_MULTIPLIER),
+            min_epochs_to_inactivity_penalty=int(spec.MIN_EPOCHS_TO_INACTIVITY_PENALTY),
+            proportional_slashing_multiplier=int(
+                spec.PROPORTIONAL_SLASHING_MULTIPLIER_BELLATRIX if bellatrix_plus
+                else spec.PROPORTIONAL_SLASHING_MULTIPLIER_ALTAIR),
+            inactivity_penalty_quotient=int(
+                spec.INACTIVITY_PENALTY_QUOTIENT_BELLATRIX if bellatrix_plus
+                else spec.INACTIVITY_PENALTY_QUOTIENT_ALTAIR),
+            max_seed_lookahead=int(spec.MAX_SEED_LOOKAHEAD),
+            min_seed_lookahead=int(spec.MIN_SEED_LOOKAHEAD),
+            epochs_per_sync_committee_period=int(spec.EPOCHS_PER_SYNC_COMMITTEE_PERIOD),
+            sync_committee_size=int(spec.SYNC_COMMITTEE_SIZE),
+            shuffle_round_count=int(spec.SHUFFLE_ROUND_COUNT),
+            weight_denominator=int(spec.WEIGHT_DENOMINATOR),
+            participation_flag_weights=tuple(int(w) for w in spec.PARTICIPATION_FLAG_WEIGHTS),
+            timely_head_flag_index=int(spec.TIMELY_HEAD_FLAG_INDEX),
+            timely_target_flag_index=int(spec.TIMELY_TARGET_FLAG_INDEX),
+            inactivity_score_bias=int(spec.config.INACTIVITY_SCORE_BIAS),
+            inactivity_score_recovery_rate=int(spec.config.INACTIVITY_SCORE_RECOVERY_RATE),
+            min_per_epoch_churn_limit=int(spec.config.MIN_PER_EPOCH_CHURN_LIMIT),
+            churn_limit_quotient=int(spec.config.CHURN_LIMIT_QUOTIENT),
+            ejection_balance=int(spec.config.EJECTION_BALANCE),
+            min_validator_withdrawability_delay=int(spec.config.MIN_VALIDATOR_WITHDRAWABILITY_DELAY),
+            epochs_per_eth1_voting_period=int(spec.EPOCHS_PER_ETH1_VOTING_PERIOD),
+            genesis_epoch=int(spec.GENESIS_EPOCH),
+        )
 
     @classmethod
     def altair_mainnet(cls) -> "EpochConfig":

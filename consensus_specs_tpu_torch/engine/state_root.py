@@ -2,7 +2,10 @@
 engine/state_root.py `make_state_root_fn` -> `field_roots`).
 
 `field_roots(st, static01)` returns the 14 field roots of DEVICE_FIELDS as
-(8,) int32 word tensors. The per-validator container roots come from kernel
+(8,) int32 word tensors. `tree_root_batch` (kernel K19, csrc/tree_root.cu)
+folds K power-of-two trees at once; `validator_static_leaves` and
+`assemble_state_root` join the device roots to a spec BeaconState's
+host-owned fields. The per-validator container roots come from kernel
 K2 (`validator_roots`, csrc/state_root.cu), every Merkle level and every
 single hash from kernel K1 (`sha256_64B_words`); chunk packing, zero-chunk
 padding and concatenation are PyTorch glue. On CPU tensors both wrappers run
@@ -22,11 +25,12 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..kernels import build
 from ..ops.sha256 import aligned_out, sha256_64B_words, sha256_64B_words_plain
-from ..ops.sha256_host import zero_hash_words
+from ..ops.sha256_host import words_to_bytes, zero_hash_words
 from ..utils.device import is_cpu
 from ..utils.u64 import MASK32, bswap32, words_i32, words_i64
 from .state import EpochState
@@ -268,3 +272,98 @@ def field_roots_plain(st: EpochState, static01: torch.Tensor) -> dict:
     """`field_roots` through the plain versions only, on any device: the
     reference the kernels are held against on the card."""
     return _field_roots(st, static01, sha256_64B_words_plain, validator_roots_plain)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K19 and its plain version
+
+TREE_FOLD_MAX_LEVELS = 10  # levels one K19 launch folds: 2^10 rows a block
+
+
+def _check_tree_chunks(chunks: torch.Tensor) -> tuple:
+    if chunks.dim() != 3 or chunks.shape[2] != 8 or chunks.dtype != torch.int32:
+        raise ValueError(f"tree_root_batch takes (K, C, 8) int32 chunk words, got "
+                         f"{tuple(chunks.shape)} {chunks.dtype}")
+    k, c, _ = chunks.shape
+    if c < 1 or c & (c - 1):
+        raise ValueError(f"tree_root_batch: the chunk count a tree must be a power of two, "
+                         f"got {c}")
+    return k, c
+
+
+def tree_root_batch_plain(chunks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K19 (engine/state_root.py:114
+    `_tree_root_batch_impl`): (K, C, 8) int32 chunk words, C a power of
+    two -> (K, 8) int32 roots. The K trees fold as one flat (K*C, 8) array,
+    one level at a time: a level's adjacent pairs never cross a tree."""
+    k, c = _check_tree_chunks(chunks)
+    nodes = chunks.reshape(k * c, 8)
+    for _ in range((c - 1).bit_length()):
+        nodes = sha256_64B_words_plain(nodes.reshape(-1, 16))
+    return nodes.reshape(k, 8).clone()
+
+
+def _tree_root_batch_kernel(chunks: torch.Tensor) -> torch.Tensor:
+    k, c = _check_tree_chunks(chunks)
+    nodes = chunks.contiguous().reshape(k * c, 8)
+    if nodes.data_ptr() % 16:
+        nodes = nodes.clone()  # the kernel reads 16-byte vectors
+    fn = build.entry("tree_root", "tree_root_fold", 2, 1)
+    per_tree = c
+    while per_tree > 1:
+        s = min(TREE_FOLD_MAX_LEVELS, (per_tree - 1).bit_length())
+        per_tree >>= s
+        out = torch.empty((k * per_tree, 8), dtype=torch.int32, device=nodes.device)
+        build.count_launch("tree_root_batch")
+        build.check(fn(nodes.data_ptr(), out.data_ptr(), k * per_tree, s,
+                       build.stream_ptr(out)), "tree_root_batch")
+        nodes = out
+    return nodes.reshape(k, 8) if c > 1 else nodes.reshape(k, 8).clone()
+
+
+def tree_root_batch(chunks: torch.Tensor) -> torch.Tensor:
+    """Roots of K Merkle trees of C chunks each (C a power of two):
+    (K, C, 8) int32 words -> (K, 8). Kernel K19 on CUDA tensors (one launch
+    a 10 levels), `tree_root_batch_plain` on CPU tensors. C = 1 hashes
+    nothing: the roots are the chunks."""
+    if is_cpu(chunks):
+        return tree_root_batch_plain(chunks)
+    return _tree_root_batch_kernel(chunks)
+
+
+# ---------------------------------------------------------------------------
+# The spec state's root from device field roots
+
+
+def validator_static_leaves(state) -> np.ndarray:
+    """(N, 16) uint32 words: hash_tree_root(pubkey) || withdrawal_credentials
+    of every validator of a spec BeaconState (engine/state_root.py:274):
+    the two immutable leaves of each Validator container, the pubkey roots
+    (sha256 of the 48 key bytes and 16 zero bytes) in one native pair-hasher
+    call. As int32 words, `static01` of `field_roots`."""
+    from ..ssz.merkle import hash_pairs_blob
+
+    vals = state.validators
+    n = len(vals)
+    pk_roots = hash_pairs_blob(b"".join(bytes(v.pubkey) + b"\x00" * 16 for v in vals))
+    wc_blob = b"".join(bytes(v.withdrawal_credentials) for v in vals)
+    out = np.zeros((n, 16), dtype=np.uint32)
+    out[:, :8] = np.frombuffer(pk_roots, dtype=">u4").reshape(n, 8)
+    out[:, 8:] = np.frombuffer(wc_blob, dtype=">u4").reshape(n, 8)
+    return out
+
+
+def assemble_state_root(spec, state, device_roots: dict) -> bytes:
+    """hash_tree_root(state) from the device-owned field roots
+    (`field_roots`' {name: (8,) int32 words}) and the port ssz's roots of
+    the fields the host owns (engine/state_root.py:303)."""
+    from ..ssz import hash_tree_root
+    from ..ssz.merkle import merkleize_chunks
+
+    chunks = []
+    for name in type(state).fields():
+        if name in DEVICE_FIELDS:
+            chunks.append(words_to_bytes(device_roots[name].cpu().numpy()))
+        else:
+            chunks.append(bytes(hash_tree_root(getattr(state, name))))
+    return merkleize_chunks(chunks)

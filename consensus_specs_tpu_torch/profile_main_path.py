@@ -15,8 +15,13 @@ after one warm-up flush each, the block's cold committee-key aggregation
 signatures decompressed before), the KZG sample batch at 128 blobs
 (`crypto/msm_synthetic`, seed 0) and the fork-choice head at V = N
 (`forkchoice/synthetic`: one snapshot of the 512-block storm tree, a batch
-of 8 swung snapshots, one of 8,192 blocks; each after a warm-up call). For
-each window it prints the
+of 8 swung snapshots, one of 8,192 blocks; each after a warm-up call), and
+the spec's `state_transition` at N (`--spec-n`, default 2**20; the routed
+altair mainnet spec, real keys, blocks at slots 8189-8193 as
+`chip_smoke.py` phase 5e builds them): the importer's epoch-256 block and
+the next block under torch.profiler, the proposer's epoch-256 block and the
+importer's block before the boundary under cProfile. For each window it
+prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
 activities that took the most device time. The last windows run the K
@@ -55,6 +60,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--epochs", type=int, default=8)
+    ap.add_argument("--spec-n", type=int, default=1 << 20)
     args = ap.parse_args(argv)
 
     import torch
@@ -181,7 +187,71 @@ def main(argv=None) -> int:
         pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
         print(f"host, {label} under cProfile (own time):")
         print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
+    _profile_spec_path(args.spec_n, dev, torch)
     return 0
+
+
+def _host_profile(label, fn, torch):
+    import cProfile
+    import io
+    import pstats
+
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
+    print(f"host, {label} under cProfile ({wall:.3f} s; own time):")
+    print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
+
+
+def _profile_spec_path(n, dev, torch):
+    """The spec path's windows (see the module docstring)."""
+    from .compiler import build_spec
+    from .crypto import bls
+    from .engine.routing import memoized_total_active_balance, routed_spec
+    from .testlib import big_state
+    from .testlib import block as tblock
+
+    spec = build_spec("altair", "mainnet", device=dev)
+    bls.use_device("cuda")
+    bls.bls_active = True
+    imp = big_state.synthetic_beacon_state(spec, n, slot=8188,
+                                           pubkeys=big_state.real_pubkeys(n))
+    spec.hash_tree_root(imp)
+    prop = imp.copy()
+    blocks = {}
+
+    def propose(slot):
+        blocks[slot] = tblock.propose_block(spec, prop, slot, (0, 1))
+
+    def apply(slot):
+        with bls.deferred_verification():
+            spec.state_transition(imp, blocks[slot], validate_result=True)
+
+    print(f"spec path: N={n}")
+    with routed_spec(spec, device=dev), memoized_total_active_balance(spec):
+        for slot in (8189, 8190):
+            propose(slot)
+            apply(slot)
+        propose(8191)
+        _host_profile("the importer's block 8191", lambda: apply(8191), torch)
+        _host_profile("the proposer's block 8192 (epoch 256)", lambda: propose(8192), torch)
+        propose(8193)
+        for label, slot in (("the importer's block 8192 (epoch 256)", 8192),
+                            ("the importer's block 8193", 8193)):
+            wall_us, rows = _profile(lambda: apply(slot), torch)
+            device_us = sum(r[2] for r in rows)
+            print(f"{label}: wall {wall_us:.1f} us, device {device_us:.1f} us, "
+                  f"busy share {device_us / wall_us:.4f}, "
+                  f"idle share {1 - device_us / wall_us:.4f}")
+            for key, count, us in rows[:12]:
+                print(f"    {us:12.1f} us  {count:6d}x  {key[:90]}")
 
 
 if __name__ == "__main__":

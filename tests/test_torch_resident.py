@@ -130,8 +130,10 @@ def test_entry_points_raise_without_card():
 
 def test_port_imports_no_jax():
     """A fresh interpreter imports every module of the port and loads no
-    jax, flax or JAX-package module (matched by exact name or dotted
-    prefix: the port's own name starts with `consensus_specs_tpu`)."""
+    jax, flax, yaml (the machine with the card has none) or JAX-package
+    module (matched by exact name or dotted prefix: the port's own name
+    starts with `consensus_specs_tpu`); the spec compiler, the SSZ layer
+    and the bridge are among the modules imported."""
     code = (
         "import json, sys, importlib, pkgutil\n"
         "before = set(sys.modules)\n"
@@ -139,7 +141,7 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "new = set(sys.modules) - before\n"
-        "banned = ('jax', 'jaxlib', 'flax', 'consensus_specs_tpu')\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'yaml', 'consensus_specs_tpu')\n"
         "print(json.dumps({'bad': sorted(m for m in new if any(\n"
         "    m == b or m.startswith(b + '.') for b in banned)),\n"
         "    'port': sorted(m for m in new if m.startswith(p.__name__))}))\n")
@@ -149,4 +151,6 @@ def test_port_imports_no_jax():
     assert res.returncode == 0, res.stderr
     seen = json.loads(res.stdout.strip().splitlines()[-1])
     assert seen["bad"] == []
-    assert "consensus_specs_tpu_torch.engine.resident" in seen["port"]
+    for name in ("engine.resident", "compiler.spec_compiler", "ssz.types", "ssz.merkle",
+                 "engine.bridge", "engine.routing", "testlib.big_state"):
+        assert f"consensus_specs_tpu_torch.{name}" in seen["port"], name
