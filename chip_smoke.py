@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG,
-fork-choice and spec state-transition paths on one NVIDIA card.
+fork-choice, spec state-transition and light-client read paths on one
+NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -25,7 +26,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and 5, a zero scalar, 2^64 - 1, a repeated point, a P + (-P) pair) and
    K14 g1_subgroup on 8 points (a pad and the on-curve (0, 2) outside the
    subgroup); K19 tree_root_batch at (K, C) = (1, 16384), (64, 1024),
-   (256, 64), (1, 1) and (2, 2) (and the first against a hashlib fold);
+   (256, 64), (1, 1) and (2, 2) (and the first against a hashlib fold); K20
+   multiproof_heap and K21 multiproof_siblings at the read lane's (K, C, Q)
+   = (8, 2**18, 512) and at (1, 1, 4), (2, 2, 8), (4, 64, 16) with shallow
+   queries only, and (3, 4096, 64) (two K20 launches), pad queries included;
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -92,6 +96,26 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    root, and a tampered twin (one sync-aggregate signature altered) is
    rejected by its flush. It prints `spec_block_ms`, `spec_root_ms`,
    `spec_epoch_ms` with the bridge's stages, and the host set-up times;
+5f. the light-client read lane (`proof_main_path`) beside phase 4's
+   resident loop (N = 2**20): a ProofService over the loop's six uint64
+   columns (balances, effective_balance, inactivity_scores, activation_epoch,
+   activation_eligibility_epoch, exit_epoch; 2**18 chunks each), the proof
+   bench's queries (`proofs/lane`: RandomState(2302), 341 distinct leaves a
+   column, round-robin, 2,046 in all) in flushes of 512 through the port's
+   Scheduler, MerkleWorkClass, `multiproof_batch`, K20 and K21. Three
+   rounds: cold, then an epoch, `note_epoch(loop.dirty_columns())` and a
+   warm round, twice. Launch counts are zeroed before the first round and
+   read after the last. Every branch of every round verifies against its
+   column's root (the port's host `merkleize_chunks`), 8 a round equal
+   `build_chunk_proof`; the hits, misses and invalidations must be what
+   `dirty_columns()` implies, no dispatch degraded, the breaker closed, one
+   device dispatch a flush, and K20/K21 launched 2 and 1 times a flush. It
+   prints the round times, the median flush by stage (provider read, pack,
+   device by CUDA events, unpack; spans of an installed tracer),
+   `proofs_per_s_warm`, `proof_p99_request_ms` (exact, from the latency
+   each prove_many call's queries observed in the lane's
+   `proof_request_latency_seconds`, beside its max and the histogram's
+   bucket-interpolated p99), the hit ratio and the busy share;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -107,7 +131,11 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    time from the bytes read and written once or the operations the data
    needs, and K16 beside `index_add_`; K19 at the historical append's
    (1, 16384) (the epoch's own vectors) and the Merkle lane's (64, 1024)
-   and (256, 64), its least time K*(C-1) hashes of K1's SASS instructions.
+   and (256, 64), its least time K*(C-1) hashes of K1's SASS instructions;
+   K20 and K21 on the read lane's first flush (8 trees of 2**18 chunks, 512
+   queries), bit-equal to their plain versions there, K20's least time
+   K*(C-1) hashes of K1's SASS instructions, K21's its rows read and written
+   once, K21 beside `index_select` over the rows it gathers.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -116,6 +144,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -154,6 +183,12 @@ SPEC_COMMITTEES = (0, 1)  # attestation committees a block, from the slot before
 SPEC_KERNELS = ("tree_root_batch", "epoch_sweep", "sha256_1block", "shuffle_rounds",
                 "point_sums", "miller_loop", "final_exp")
 K19_SHAPES = ((1, 16384), (64, 1024), (256, 64), (1, 1), (2, 2))
+# (K, C, Q, shallow): the read lane's main shape, then the edges
+MULTIPROOF_SHAPES = ((8, 1 << 18, 512, False), (1, 1, 4, False), (2, 2, 8, False),
+                     (4, 64, 16, True), (3, 4096, 64, False))
+PROOF_KERNELS = ("multiproof_heap", "multiproof_siblings")
+PROOF_ROUNDS = 3         # cold, then two epochs each followed by a warm round
+PROOF_ORACLE_CHECKS = 8  # branches a round also held against build_chunk_proof
 
 
 class SmokeFailure(RuntimeError):
@@ -1190,6 +1225,284 @@ def spec_main_path(dev) -> tuple:
     return out, launches, chunks
 
 
+def check_multiproof_kernels(dev, rng, err) -> None:
+    """K20 and K21 bit-equal to their plain versions at the read lane's main
+    shape and at the edges: one leaf, two leaves, shallow queries (root and
+    interior nodes only) and a depth that takes two K20 launches."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import multiproof as tmp
+
+    for k, c, q, shallow in MULTIPROOF_SHAPES:
+        chunks = rand_words(rng, (k, c, 8), dev)
+        tree_ids = torch.from_numpy(rng.integers(0, k, q).astype(np.int32)).to(dev)
+        top = min(2 * c, 16) if shallow else 2 * c
+        gidx = rng.integers(1 if shallow else c, top, q).astype(np.int32)
+        gidx[0] = 1  # a pad query: the root of tree 0
+        tree_ids[0] = 0
+        gidx = torch.from_numpy(gidx).to(dev)
+        d = max((c - 1).bit_length(), 1)
+        heap = tmp.multiproof_heap(chunks)
+        heap_plain = tmp.multiproof_heap_plain(chunks)
+        got = tmp.multiproof_gather(heap, tree_ids, gidx, d)
+        plain = tmp.multiproof_gather_plain(heap_plain, tree_ids, gidx, d)
+        torch.cuda.synchronize()
+        err["multiproof_heap"] = max(err["multiproof_heap"], max_abs_err(heap, heap_plain))
+        err["multiproof_siblings"] = max(err["multiproof_siblings"],
+                                         *(max_abs_err(a, b) for a, b in zip(got, plain)))
+        require(torch.equal(heap, heap_plain),
+                f"K20 multiproof_heap ({k}, {c}) differs from its plain version")
+        require(all(torch.equal(a, b) for a, b in zip(got, plain)),
+                f"K21 multiproof_siblings ({k}, {c}, {q}) differs from its plain version")
+    print(f"check K20 multiproof_heap, K21 multiproof_siblings: (K, C, Q, shallow) "
+          f"{MULTIPROOF_SHAPES} bit-equal to the plain versions")
+
+
+def first_flush_inputs(cls, loop, queries, dev) -> tuple:
+    """The kernel inputs of the read lane's first flush, taken before it
+    runs: the first slice's requests as ProofService submits them on a cold
+    cache (one chunk tuple a column), packed by `MerkleWorkClass.pack`."""
+    import torch
+
+    from consensus_specs_tpu_torch.proofs import lane
+    from consensus_specs_tpu_torch.sched import Request
+
+    first = queries[:lane.FLUSH]
+    cols = {c: tuple(map(bytes, lane.column_chunks(loop, c))) for c, _ in first}
+    reqs = [Request(work_class="merkle", kind="multiproof", payload=(cols[c], g))
+            for c, g in first]
+    n_chunks = loop.state.balances.shape[0] // 4
+    words, tree_ids, gidx, _ = cls.pack(reqs, [(i, g) for i, (_, g) in enumerate(first)],
+                                        n_chunks)
+    return tuple(torch.from_numpy(a).to(dev) for a in (words.view(np.int32), tree_ids, gidx))
+
+
+def weighted_quantile(values, weights, q) -> float:
+    """The q-quantile of values each observed `weight` times: the smallest
+    value whose cumulative weight reaches q of the total."""
+    pairs = sorted(zip(values, weights))
+    rank, cum = q * sum(weights), 0
+    for v, w in pairs:
+        cum += w
+        if cum >= rank:
+            return v
+    return pairs[-1][0]
+
+
+PROOF_STAGES = ("proofs.provider_read", "merkle.pack", "merkle.device", "merkle.unpack")
+
+
+def _flush_stages(spans) -> list:
+    """Per flush (a prove_many call that flushed): its wall and the seconds
+    of each stage span inside it, and the device's CUDA-event time."""
+    flushes, cur = [], {}
+    for sp in spans:
+        if sp["name"] == "proofs.prove_many":
+            if cur:
+                flushes.append(dict(cur, wall=sp["duration"]))
+            cur = {}
+        elif sp["name"] in PROOF_STAGES:
+            cur[sp["name"]] = cur.get(sp["name"], 0.0) + sp["duration"]
+            if sp["name"] == "merkle.device":
+                cur["device_event_ms"] = (cur.get("device_event_ms", 0.0)
+                                          + sp["attrs"]["device_event_ms"])
+    return flushes
+
+
+def proof_main_path(dev, loop) -> tuple:
+    """Phase 5f, the read lane (see the module docstring): three rounds of
+    the proof bench's queries through ProofService -> Scheduler ->
+    MerkleWorkClass -> multiproof_batch -> K20 + K21, beside the resident
+    loop, whose dirty columns invalidate the cache between rounds. Returns
+    (the lane's numbers, its K20/K21 launches, the first flush's kernel
+    inputs)."""
+    import statistics
+
+    import torch
+
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.obs import metrics as tmetrics
+    from consensus_specs_tpu_torch.obs import trace as ttrace
+    from consensus_specs_tpu_torch.ops import multiproof as tmp
+    from consensus_specs_tpu_torch.proofs import ProofService, lane
+    from consensus_specs_tpu_torch.sched import MerkleWorkClass, Scheduler
+    from consensus_specs_tpu_torch.ssz.merkle import merkleize_chunks
+    from consensus_specs_tpu_torch.ssz.proofs import build_chunk_proof, is_valid_merkle_branch
+
+    reg = tmetrics.MetricsRegistry()
+    cls = MerkleWorkClass(device=dev)
+    sched = Scheduler(classes=[cls], registry=reg)
+    svc = ProofService(scheduler=sched, registry=reg)
+    lane.register_loop_columns(svc, loop)
+    n_chunks = loop.state.balances.shape[0] // 4
+    depth = (n_chunks - 1).bit_length()
+    queries = lane.build_queries(n_chunks, lane.QUERIES)
+    slices = [queries[i:i + lane.FLUSH] for i in range(0, len(queries), lane.FLUSH)]
+    k20_a_flush = -(-depth // tmp.HEAP_FOLD_MAX_LEVELS)
+    print(f"read lane: N={loop.state.balances.shape[0]}, {len(lane.COLUMNS)} columns of "
+          f"{n_chunks} chunks, {len(queries)} distinct leaf queries (RandomState"
+          f"({lane.SEED}), round-robin) in flushes of {lane.FLUSH}, {PROOF_ROUNDS} rounds, "
+          f"from epoch {loop.epoch}", flush=True)
+
+    def totals(series):
+        return sum(reg.counters_matching(series).values())
+
+    inputs = first_flush_inputs(cls, loop, queries, dev)
+    tracer = ttrace.Tracer(registry=reg, max_spans=1 << 16).install()
+    rounds, flushes_expected = [], 0
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        for r in range(PROOF_ROUNDS):
+            dirty, dropped, want_dropped = None, 0, 0
+            if r:
+                loop.step_epoch()
+                loop.flush()
+                dirty = loop.dirty_columns()
+                cached = {c: len(svc.cache.entries(c)) for c in lane.COLUMNS}
+                want_dropped = sum(n for c, n in cached.items() if dirty[c])
+                dropped = svc.note_epoch(dirty)
+            stale = {c for c in lane.COLUMNS if r == 0 or dirty[c]}
+            want_flushes = sum(1 for s in slices if any(c in stale for c, _ in s))
+            want_hits = sum(1 for c, _ in queries if c not in stale)
+            hits0, misses0 = totals("proof_cache_hits_total"), totals("proof_cache_misses_total")
+            wall0 = time.perf_counter()
+            branches = lane.prove_round(svc, queries)
+            wall = time.perf_counter() - wall0
+            hits = totals("proof_cache_hits_total") - hits0
+            misses = totals("proof_cache_misses_total") - misses0
+            require(dropped == want_dropped,
+                    f"round {r}: {dropped} branches invalidated, the dirty columns held "
+                    f"{want_dropped}")
+            require(hits == want_hits and misses == len(queries) - want_hits,
+                    f"round {r}: {hits} hits, {misses} misses; dirty_columns() implies "
+                    f"{want_hits} hits")
+            flushes_expected += want_flushes
+            # every branch against its column's root (uncounted host work)
+            verify0 = time.perf_counter()
+            chunks = {c: lane.column_chunks(loop, c) for c in lane.COLUMNS}
+            roots = {c: merkleize_chunks(ch) for c, ch in chunks.items()}
+            for (c, g), br in zip(queries, branches):
+                i = g - n_chunks
+                require(len(br) == depth and is_valid_merkle_branch(
+                    chunks[c][i], br, depth, i, roots[c]),
+                    f"round {r}: the branch of {c} leaf {i} does not verify")
+            picks = [(j * len(queries)) // PROOF_ORACLE_CHECKS + r
+                     for j in range(PROOF_ORACLE_CHECKS)]
+            for j in picks:
+                c, g = queries[j]
+                require(list(branches[j]) == build_chunk_proof(chunks[c], g),
+                        f"round {r}: the branch of query {j} differs from build_chunk_proof")
+            verify_s = time.perf_counter() - verify0
+            rounds.append(dict(round=r, wall_ms=1e3 * wall, flushes=want_flushes, hits=hits,
+                               misses=misses, invalidated=dropped,
+                               dirty=sorted(stale) if r else None, verify_s=verify_s))
+            print(f"read lane round {r}: {1e3 * wall:.4f} ms, {want_flushes} flushes, {hits} "
+                  f"hits, {misses} misses, {dropped} invalidated"
+                  + (f", dirty {sorted(stale)}" if r else "")
+                  + f"; {len(queries)} branches verified against the column roots, "
+                  f"{PROOF_ORACLE_CHECKS} = build_chunk_proof ({verify_s:.1f} s)", flush=True)
+        torch.cuda.synchronize()
+        launches = {k: build.LAUNCHES[k] for k in ("multiproof_heap", "multiproof_siblings")}
+        spans = tracer.spans()
+    finally:
+        tracer.uninstall()
+    degraded = reg.counter_value("sched_degraded_total", work_class="merkle")
+    device_dispatch = reg.counter_value("sched_dispatch_total", work_class="merkle",
+                                        path="device")
+    require(degraded == 0 and sched.breaker("merkle").state == "closed",
+            f"read lane degraded {degraded} dispatches, breaker {sched.breaker('merkle').state}")
+    require(device_dispatch == flushes_expected,
+            f"{device_dispatch} device dispatches for {flushes_expected} flushes")
+    require(launches == {"multiproof_heap": k20_a_flush * flushes_expected,
+                         "multiproof_siblings": flushes_expected},
+            f"K20/K21 launches {launches} for {flushes_expected} flushes")
+    flushes = _flush_stages(spans)
+    require(len(flushes) == flushes_expected, f"{len(flushes)} flush spans")
+    med = {name: 1e3 * statistics.median(f.get(name, 0.0) for f in flushes)
+           for name in PROOF_STAGES + ("wall",)}
+    device_ms = statistics.median(f["device_event_ms"] for f in flushes)
+    warm = [x["wall_ms"] for x in rounds[1:]]
+    # p99 exactly: every query of a prove_many call observes that call's
+    # latency, so weight each call's latency by its query count (the
+    # histogram's buckets only bound it)
+    hist = reg.histogram("proof_request_latency_seconds")
+    calls = [sp["attrs"] for sp in spans if sp["name"] == "proofs.prove_many"]
+    lat = [a["request_latency_s"] for a in calls]
+    n_q = [a["queries"] for a in calls]
+    require(sum(n_q) == hist.count == PROOF_ROUNDS * len(queries)
+            and math.isclose(sum(t * n for t, n in zip(lat, n_q)), hist.sum, rel_tol=1e-9),
+            f"{sum(n_q)} queries in the prove_many spans, {hist.count} latency observations")
+    busy = sum(f["device_event_ms"] for f in flushes) / sum(x["wall_ms"] for x in rounds)
+    out = dict(
+        proof_cold_round_ms=rounds[0]["wall_ms"], proof_warm_round_ms=min(warm),
+        proof_warm_round_each_ms=warm, proof_flush_ms=med["wall"],
+        proof_flush_stages_ms=dict(provider_read=med["proofs.provider_read"],
+                                   pack=med["merkle.pack"], device_wall=med["merkle.device"],
+                                   device_events=device_ms, unpack=med["merkle.unpack"]),
+        proof_flush_each_ms=[1e3 * f["wall"] for f in flushes],
+        proofs_per_s_warm=len(queries) / (min(warm) / 1e3),
+        proof_p99_request_ms=1e3 * weighted_quantile(lat, n_q, 0.99),
+        proof_p50_request_ms=1e3 * weighted_quantile(lat, n_q, 0.50),
+        proof_max_request_ms=1e3 * max(lat), proof_p99_request_ms_buckets=1e3 * hist.p99(),
+        proof_cache_hit_ratio=reg.gauge_value("proof_cache_hit_ratio"),
+        proof_busy_share=busy, queries=len(queries), columns=len(lane.COLUMNS),
+        chunks_per_column=n_chunks, flushes=flushes_expected, rounds=rounds,
+        sched_dispatch_device=device_dispatch, sched_degraded=degraded,
+        breaker=sched.breaker("merkle").state)
+    return out, launches, inputs
+
+
+def multiproof_rows(inputs, launches, err, sass_sha, bound) -> list:
+    """K20 and K21 at the read lane's main shape (the first flush's inputs:
+    8 trees of 2^18 chunks, 512 queries), each held bit-equal to its plain
+    version on the same tensors, beside its bound and, for K21, one
+    `index_select` over the rows it gathers."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import multiproof as tmp
+
+    words, tree_ids, gidx = inputs
+    k, c, q = words.shape[0], words.shape[1], gidx.shape[0]
+    d = max((c - 1).bit_length(), 1)
+    heap = tmp.multiproof_heap(words)
+    heap_plain = tmp.multiproof_heap_plain(words)
+    got = tmp.multiproof_gather(heap, tree_ids, gidx, d)
+    plain = tmp.multiproof_gather_plain(heap, tree_ids, gidx, d)
+    torch.cuda.synchronize()
+    err["multiproof_heap"] = max(err["multiproof_heap"], max_abs_err(heap, heap_plain))
+    err["multiproof_siblings"] = max(err["multiproof_siblings"],
+                                     *(max_abs_err(a, b) for a, b in zip(got, plain)))
+    require(torch.equal(heap, heap_plain) and all(torch.equal(a, b) for a, b in zip(got, plain)),
+            "K20/K21 differ from their plain versions on the read lane's flush")
+    flat = heap.reshape(-1, 8)
+    idx = tmp.gather_rows_index(tree_ids, gidx, k, c, d)
+    require(torch.equal(flat.index_select(0, idx)[:q * d].reshape(q, d, 8), got[0]),
+            "index_select over K21's rows differs from K21")
+    rows_out = q * d + q + k
+    shape = f"K={k} C={c} Q={q} D={d}"
+    common = dict(route="cuda", source="consensus_specs_tpu_torch/csrc/multiproof.cu", shape=shape)
+    k20 = dict(name="multiproof_heap", replaces="consensus_specs_tpu/ops/multiproof_jax.py:29",
+               **common, ms=time_ms(lambda: tmp.multiproof_heap(words), 20),
+               plain_ms=time_ms(lambda: tmp.multiproof_heap_plain(words), 2),
+               library_ms=None, library_null_reason="no PyTorch call hashes",
+               hashes=k * (c - 1), **bound(sass_sha * k * (c - 1), 32 * k * c + 32 * k * 2 * c))
+    k21 = dict(name="multiproof_siblings", replaces="consensus_specs_tpu/ops/multiproof_jax.py:29",
+               **common, ms=time_ms(lambda: tmp.multiproof_gather(heap, tree_ids, gidx, d), 50),
+               plain_ms=time_ms(lambda: tmp.multiproof_gather_plain(heap, tree_ids, gidx, d), 5),
+               library_ms=time_ms(lambda: flat.index_select(0, idx), 50),
+               library_note="index_select over the precomputed rows; excludes the index "
+                            "arithmetic", rows=rows_out,
+               **bound(0, 2 * 32 * rows_out + 8 * q))
+    for row in (k20, k21):
+        row.update(launches=launches[row["name"]], max_abs_err=err[row["name"]],
+                   bit_equal=err[row["name"]] == 0.0)
+        print(f"kernel {row['name']} ({shape}): ms={row['ms']:.5f} bound_ms={row['bound_ms']:.6f} "
+              f"({row['bound_by']}) plain_ms={row['plain_ms']:.3f} library_ms={row['library_ms']} "
+              f"launches {row['launches']}", flush=True)
+    return [k20, k21]
+
+
 def main() -> int:
     import torch
 
@@ -1373,6 +1686,7 @@ def main() -> int:
     check_bls_kernels(dev, err)
     check_msm_kernels(dev, err)
     check_tree_root_kernel(dev, rng, err)
+    check_multiproof_kernels(dev, np.random.default_rng(20), err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -1442,7 +1756,7 @@ def main() -> int:
           f"launches={launches} max_memory_allocated={peak} (beside it the BLS stacks' "
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
-        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS,
+        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -1563,6 +1877,26 @@ def main() -> int:
                                         if k.endswith("_ms") and not isinstance(v, (list, dict)))
           + f" stages_ms={spec_out['spec_epoch_stages_ms']} launches="
           f"{ {k: v for k, v in spec_launches.items() if v} }", flush=True)
+
+    # 5f. the read lane beside the resident loop: the proof bench's queries
+    # through the proof service, the scheduler and K20 + K21
+    proof_out, proof_launches, proof_inputs = proof_main_path(dev, loop)
+    stages = proof_out["proof_flush_stages_ms"]
+    print(f"read lane main path: proof_cold_round_ms={proof_out['proof_cold_round_ms']:.4f} "
+          f"proof_warm_round_ms={proof_out['proof_warm_round_ms']:.4f} (each "
+          f"{proof_out['proof_warm_round_each_ms']}) proof_flush_ms="
+          f"{proof_out['proof_flush_ms']:.4f} (median of {proof_out['flushes']}: provider read "
+          f"{stages['provider_read']:.4f}, pack {stages['pack']:.4f}, device "
+          f"{stages['device_events']:.4f} by CUDA events ({stages['device_wall']:.4f} host wall), "
+          f"unpack {stages['unpack']:.4f}) proofs_per_s_warm={proof_out['proofs_per_s_warm']:.1f} "
+          f"proof_p99_request_ms={proof_out['proof_p99_request_ms']:.4f} (exact; max "
+          f"{proof_out['proof_max_request_ms']:.4f}, bucket-interpolated p99 "
+          f"{proof_out['proof_p99_request_ms_buckets']:.4f}) "
+          f"proof_cache_hit_ratio={proof_out['proof_cache_hit_ratio']:.4f} busy share "
+          f"{proof_out['proof_busy_share']:.4f} (CUDA-event device time over the rounds' wall); "
+          f"sched_dispatch_total{{path=device}}={proof_out['sched_dispatch_device']} "
+          f"sched_degraded_total={proof_out['sched_degraded']} breaker "
+          f"{proof_out['breaker']} launches={proof_launches}", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -1718,6 +2052,8 @@ def main() -> int:
         print(f"kernel tree_root_batch ({r['shape']}): ms={r['ms']:.5f} "
               f"bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) plain_ms={r['plain_ms']:.3f} "
               f"launches a call {r['launches_a_call']}", flush=True)
+    with Aside():
+        rows += multiproof_rows(proof_inputs, proof_launches, err, sass["sha256_64b"], bound)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -1730,7 +2066,8 @@ def main() -> int:
         "bls_path": bls_out, "msm_path": dict(msm_out, launches=msm_parts),
         "forkchoice_path": dict(fc_out, launches=fc_parts),
         "spec_path": dict(spec_out, n=SPEC_N, slots=SPEC_SLOTS, committees=SPEC_COMMITTEES,
-                          launches=spec_launches)}))
+                          launches=spec_launches),
+        "proof_path": dict(proof_out, launches=proof_launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -3,8 +3,9 @@ engine/state_root.py `make_state_root_fn` -> `field_roots`).
 
 `field_roots(st, static01)` returns the 14 field roots of DEVICE_FIELDS as
 (8,) int32 word tensors. `tree_root_batch` (kernel K19, csrc/tree_root.cu)
-folds K power-of-two trees at once; `validator_static_leaves` and
-`assemble_state_root` join the device roots to a spec BeaconState's
+folds K power-of-two trees at once; `multiproof_batch` (kernels K20 +
+K21, `ops/multiproof.py`) is the read lane's host entry;
+`validator_static_leaves` and `assemble_state_root` join the device roots to a spec BeaconState's
 host-owned fields. The per-validator container roots come from kernel
 K2 (`validator_roots`, csrc/state_root.cu), every Merkle level and every
 single hash from kernel K1 (`sha256_64B_words`); chunk packing, zero-chunk
@@ -29,9 +30,11 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..obs import trace as obs_trace
+from ..ops.multiproof import sibling_rows_batch
 from ..ops.sha256 import aligned_out, sha256_64B_words, sha256_64B_words_plain
 from ..ops.sha256_host import words_to_bytes, zero_hash_words
-from ..utils.device import is_cpu
+from ..utils.device import is_cpu, resolve_device
 from ..utils.u64 import MASK32, bswap32, words_i32, words_i64
 from .state import EpochState
 
@@ -329,6 +332,36 @@ def tree_root_batch(chunks: torch.Tensor) -> torch.Tensor:
     if is_cpu(chunks):
         return tree_root_batch_plain(chunks)
     return _tree_root_batch_kernel(chunks)
+
+
+def multiproof_batch(chunk_words, tree_ids, gindices, device="cuda") -> tuple:
+    """Host entry of the batched multiproof kernels (engine/state_root.py:135):
+    numpy in, numpy out. chunk_words (K, C, 8) uint32 with C a power of two
+    (K and Q are the caller's buckets); tree_ids and gindices (Q,) select
+    (tree, node) per query. Returns (siblings (Q, D, 8), nodes (Q, 8),
+    roots (K, 8)) uint32; a query at depth d uses siblings[:d], deepest
+    first (`ssz/proofs.build_chunk_proof` order). K20 + K21 on the card
+    (`ops/multiproof.sibling_rows_batch`), the plain version with
+    device="cpu"; raises without a card unless asked for the CPU.
+
+    With a tracer installed (obs/trace.py) and a CUDA device, the copies in,
+    the kernels and the copies out are timed with CUDA events, and the
+    enclosing span gets `device_event_ms`."""
+    dev = resolve_device(device)
+    words = torch.from_numpy(np.ascontiguousarray(chunk_words, dtype=np.uint32).view(np.int32))
+    tids = torch.from_numpy(np.ascontiguousarray(tree_ids, dtype=np.int32))
+    gidx = torch.from_numpy(np.ascontiguousarray(gindices, dtype=np.int32))
+    events = None
+    if dev.type == "cuda" and obs_trace.current_tracer() is not None:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+    out = sibling_rows_batch(words.to(dev), tids.to(dev), gidx.to(dev))
+    host = tuple(t.cpu().numpy().view(np.uint32) for t in out)
+    if events is not None:
+        events[1].record()
+        events[1].synchronize()
+        obs_trace.annotate(device_event_ms=events[0].elapsed_time(events[1]))
+    return host
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,12 @@ after one warm-up flush each, the block's cold committee-key aggregation
 signatures decompressed before), the KZG sample batch at 128 blobs
 (`crypto/msm_synthetic`, seed 0) and the fork-choice head at V = N
 (`forkchoice/synthetic`: one snapshot of the 512-block storm tree, a batch
-of 8 swung snapshots, one of 8,192 blocks; each after a warm-up call), and
-the spec's `state_transition` at N (`--spec-n`, default 2**20; the routed
-altair mainnet spec, real keys, blocks at slots 8189-8193 as
+of 8 swung snapshots, one of 8,192 blocks; each after a warm-up call), the
+read lane over the loop's columns (`proofs/lane`: a cold round of the proof
+bench's queries, then one warm flush of 512 after an epoch's invalidation
+under torch.profiler and another under cProfile), and the spec's
+`state_transition` at N (`--spec-n`, default 2**20; the routed altair
+mainnet spec, real keys, blocks at slots 8189-8193 as
 `chip_smoke.py` phase 5e builds them): the importer's epoch-256 block and
 the next block under torch.profiler, the proposer's epoch-256 block and the
 importer's block before the boundary under cProfile. For each window it
@@ -54,6 +57,18 @@ def _profile(fn, torch):
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     return wall_us, rows
+
+
+def _print_window(label, wall_us, rows) -> None:
+    device_us = sum(r[2] for r in rows)
+    if not rows:
+        print(f"{label}: wall {wall_us:.1f} us; device time not measured "
+              "(the profiler recorded no device activity)")
+        return
+    print(f"{label}: wall {wall_us:.1f} us, device {device_us:.1f} us, "
+          f"busy share {device_us / wall_us:.4f}, idle share {1 - device_us / wall_us:.4f}")
+    for key, count, us in rows[:12]:
+        print(f"    {us:12.1f} us  {count:6d}x  {key[:90]}")
 
 
 def main(argv=None) -> int:
@@ -157,16 +172,7 @@ def main(argv=None) -> int:
                       ("fork-choice head (512 blocks)", fc_heads(fc_head)),
                       ("fork-choice batch of 8 (512 blocks)", fc_heads(fc_batch)),
                       ("fork-choice head (8192 blocks)", fc_heads(fc_long))):
-        wall_us, rows = _profile(fn, torch)
-        device_us = sum(r[2] for r in rows)
-        if not rows:
-            print(f"{label}: wall {wall_us:.1f} us; device time not measured "
-                  "(the profiler recorded no device activity)")
-            continue
-        print(f"{label}: wall {wall_us:.1f} us, device {device_us:.1f} us, "
-              f"busy share {device_us / wall_us:.4f}, idle share {1 - device_us / wall_us:.4f}")
-        for key, count, us in rows[:12]:
-            print(f"    {us:12.1f} us  {count:6d}x  {key[:90]}")
+        _print_window(label, *_profile(fn, torch))
 
     import cProfile
     import io
@@ -187,8 +193,37 @@ def main(argv=None) -> int:
         pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(15)
         print(f"host, {label} under cProfile (own time):")
         print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
+    _profile_read_lane(loop, dev, torch)
     _profile_spec_path(args.spec_n, dev, torch)
     return 0
+
+
+def _profile_read_lane(loop, dev, torch):
+    """The read lane over the loop's columns (the proof bench's queries):
+    a cold round fills the cache, then one epoch and its invalidation before
+    each window; one warm flush (512 queries) under torch.profiler, another
+    under cProfile."""
+    from .proofs import ProofService, lane
+    from .sched import MerkleWorkClass, Scheduler
+
+    svc = ProofService(scheduler=Scheduler(classes=[MerkleWorkClass(device=dev)]))
+    lane.register_loop_columns(svc, loop)
+    queries = lane.build_queries(loop.state.balances.shape[0] // 4)
+    lane.prove_round(svc, queries)
+
+    def invalidate():
+        loop.step_epoch()
+        loop.flush()
+        return svc.note_epoch(loop.dirty_columns())
+
+    def warm_flush():
+        svc.prove_many(queries[:lane.FLUSH])
+
+    dropped = invalidate()
+    _print_window(f"read lane: one warm flush ({lane.FLUSH} queries, {dropped} branches "
+                  "invalidated by the epoch before)", *_profile(warm_flush, torch))
+    invalidate()
+    _host_profile(f"one warm read-lane flush ({lane.FLUSH} queries)", warm_flush, torch)
 
 
 def _host_profile(label, fn, torch):
@@ -245,13 +280,7 @@ def _profile_spec_path(n, dev, torch):
         propose(8193)
         for label, slot in (("the importer's block 8192 (epoch 256)", 8192),
                             ("the importer's block 8193", 8193)):
-            wall_us, rows = _profile(lambda: apply(slot), torch)
-            device_us = sum(r[2] for r in rows)
-            print(f"{label}: wall {wall_us:.1f} us, device {device_us:.1f} us, "
-                  f"busy share {device_us / wall_us:.4f}, "
-                  f"idle share {1 - device_us / wall_us:.4f}")
-            for key, count, us in rows[:12]:
-                print(f"    {us:12.1f} us  {count:6d}x  {key[:90]}")
+            _print_window(label, *_profile(lambda: apply(slot), torch))
 
 
 if __name__ == "__main__":

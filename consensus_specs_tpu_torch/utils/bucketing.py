@@ -1,12 +1,13 @@
-"""Shape-bucket planning for the port's BLS flush (a copy of the JAX
-package's sched/bucketing.py: `pow2_bucket` and `grouped_plan`, with their
-plan classes).
+"""Shape-bucket planning shared by the port's device lanes (a copy of the
+JAX package's sched/bucketing.py: `pow2_bucket`, `pad_plan` and
+`grouped_plan`, with their plan classes). `sched/bucketing.py` re-exports
+this module: there is one copy of the planning code in the port.
 
 Every device batch pads to a power-of-two bucket (the JAX package keeps one
 jit cache entry per bucket; the port keeps the same shapes, so both
-packages pad a flush identically). The grouped plan pads the distinct
-messages to a power of two and seeds every pad group with a pad item: an
-empty segment would sum to infinity and fail the batch closed.
+packages pad a flush identically). The BLS flush's grouped plan pads the
+distinct messages to a power of two and seeds every pad group with a pad
+item: an empty segment would sum to infinity and fail the batch closed.
 """
 from __future__ import annotations
 

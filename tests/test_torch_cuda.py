@@ -568,3 +568,130 @@ def test_forkchoice_kernels_check_their_inputs(cuda):
     votes = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         tfc_ops.vote_weights(votes, torch.zeros((1, 64), dtype=torch.int32, device=cuda), 8)
+
+
+# --- the read lane: K20 multiproof_heap, K21 multiproof_siblings ------------
+
+from consensus_specs_tpu_torch.ops import multiproof as tmultiproof  # noqa: E402
+from consensus_specs_tpu_torch.sched import MerkleWorkClass, Request, Scheduler  # noqa: E402
+from consensus_specs_tpu_torch.ssz.proofs import build_chunk_proof  # noqa: E402
+
+
+def _multiproof_inputs(k, c, q, seed, shallow=False):
+    rng = np.random.default_rng(seed)
+    words = _words((k, c, 8), seed)
+    tree_ids = rng.integers(0, k, q).astype(np.int32)
+    low = 1 if shallow else c
+    gidx = rng.integers(low, max(low + 1, 2 * c if not shallow else min(2 * c, 8)), q)
+    gidx = gidx.astype(np.int32)
+    gidx[0], tree_ids[0] = 1, 0  # a pad: the root of tree 0
+    return words, tree_ids, gidx
+
+
+@pytest.mark.parametrize("k,c,q,shallow", [(1, 1, 4, False), (2, 2, 8, False),
+                                           (4, 64, 16, True), (3, 4096, 64, False),
+                                           (8, 1 << 18, 512, False), (8, 1 << 18, 64, True)])
+def test_multiproof_kernels_match_plain(cuda, k, c, q, shallow):
+    words, tree_ids, gidx = _multiproof_inputs(k, c, q, k * 1009 + c + q, shallow)
+    args = (_dev(words, cuda), torch.from_numpy(tree_ids).to(cuda),
+            torch.from_numpy(gidx).to(cuda))
+    build.reset_launches()
+    heap = tmultiproof.multiproof_heap(args[0])
+    got = tmultiproof.sibling_rows_batch(*args)
+    launches = dict(build.LAUNCHES)
+    torch.cuda.synchronize()
+    assert torch.equal(heap, tmultiproof.multiproof_heap_plain(args[0]))
+    for a, b in zip(got, tmultiproof.sibling_rows_batch_plain(*args)):
+        assert torch.equal(a, b)
+    per_heap = max(1, -(-(c - 1).bit_length() // tmultiproof.HEAP_FOLD_MAX_LEVELS))
+    assert launches["multiproof_heap"] == 2 * per_heap
+    assert launches["multiproof_siblings"] == 1
+    t, g = int(tree_ids[-1]), int(gidx[-1])
+    d = g.bit_length() - 1
+    assert [words_to_bytes(r) for r in got[0][-1, :d].cpu().numpy()] == build_chunk_proof(
+        [words_to_bytes(r) for r in words[t]], g)
+
+
+def test_multiproof_kernels_check_their_inputs(cuda):
+    words, tree_ids, gidx = _multiproof_inputs(2, 4, 4, 5)
+    chunks = _dev(words, cuda)
+    bad = torch.from_numpy(gidx).to(cuda)
+    bad[1] = 8
+    with pytest.raises(ValueError):
+        tmultiproof.sibling_rows_batch(chunks, torch.from_numpy(tree_ids).to(cuda), bad)
+
+
+def test_multiproof_launches_pinned_per_bucket(cuda):
+    """The port's counterpart of tests/test_proofs.py's
+    test_multiproof_compile_pinned_one_per_bucket: launches per (K, C, Q)
+    bucket, the same again on replay, and a new bucket adds exactly its
+    own."""
+
+    def run(counts, per_tree):
+        sch = Scheduler(classes=[MerkleWorkClass(device=cuda)])
+        handles = []
+        for i, n in enumerate(counts):
+            chunks = [bytes([(11 * i + j) % 251 + 1] * 32) for j in range(n)]
+            c_full = 1 if n <= 1 else 1 << (n - 1).bit_length()
+            for q in range(per_tree):
+                handles.append(sch.submit(Request(work_class="merkle", kind="multiproof",
+                                                  payload=(chunks, c_full + q % c_full))))
+        build.reset_launches()
+        sch.drain()
+        for h in handles:
+            assert isinstance(h.result(), tuple)
+        return build.LAUNCHES["multiproof_heap"], build.LAUNCHES["multiproof_siblings"]
+
+    first = run((3, 4, 2), 3)  # buckets (K=2, C=4, Q=8) and (K=1, C=2, Q=2)
+    assert first == (2, 2)
+    assert run((3, 4, 2), 3) == first
+    assert run((3,) * 9, 1) == (1, 1)  # (K=16, C=4, Q=16)
+
+
+def _mixed_merkle(seed, counts):
+    """tests/test_torch_proofs.py's `_mixed` workload (that file imports the
+    JAX package, which the card-only tests do not): tree_root and multiproof
+    requests over random trees in several leaf-count buckets, odd query
+    counts forcing pad queries."""
+    rng = np.random.RandomState(seed)
+    items = []
+    for i, n in enumerate(counts):
+        chunks = [rng.randint(0, 256, 32, dtype=np.uint8).tobytes() for _ in range(n)]
+        c_full = 1 if n <= 1 else 1 << (n - 1).bit_length()
+        if i % 3 == 2:
+            items.append(("tree_root", (chunks,)))
+        for _ in range(int(rng.randint(1, 4))):
+            items.append(("multiproof", (chunks, int(rng.randint(1, 2 * c_full)))))
+    return items
+
+
+@pytest.mark.parametrize("counts", [(1, 3, 8, 5, 16, 2, 3), (4, 4, 7), (1, 2, 2000, 9, 6, 1500)])
+def test_merkle_class_mixed_kinds_on_the_card_match_cpu(cuda, counts):
+    """Both kinds of MerkleWorkClass on the card, tree_root (K19) beside
+    multiproof (K20 + K21) in one drained batch, equal to the same batch on
+    MerkleWorkClass(device="cpu"), with the launches each bucket implies."""
+    items = _mixed_merkle(42 + len(counts), counts)
+
+    def run(device):
+        sch = Scheduler(classes=[MerkleWorkClass(device=device)])
+        handles = [sch.submit(Request(work_class="merkle", kind=k, payload=p)) for k, p in items]
+        build.reset_launches()
+        sch.drain()
+        return [h.result() for h in handles], dict(build.LAUNCHES)
+
+    got, launches = run(cuda)
+    want, _ = run("cpu")
+    assert got == want
+
+    def buckets(kind):
+        return {1 if len(p[0]) <= 1 else 1 << (len(p[0]) - 1).bit_length()
+                for k, p in items if k == kind}
+
+    def levels(c, per_launch):
+        return -(-(c - 1).bit_length() // per_launch)
+
+    assert launches["tree_root_batch"] == sum(
+        levels(c, troot.TREE_FOLD_MAX_LEVELS) for c in buckets("tree_root")) > 0
+    assert launches["multiproof_heap"] == sum(
+        max(1, levels(c, tmultiproof.HEAP_FOLD_MAX_LEVELS)) for c in buckets("multiproof"))
+    assert launches["multiproof_siblings"] == len(buckets("multiproof"))
