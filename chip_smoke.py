@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG,
-fork-choice, spec state-transition and light-client read paths on one
+fork-choice, spec state-transition, light-client read and DAS paths on one
 NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed S]
 
 Phases (any failure raises and exits nonzero; there is no CPU fallback):
 1. report the card (nvidia-smi name and power limit) and the CUDA version;
@@ -116,6 +116,27 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    each prove_many call's queries observed in the lane's
    `proof_request_latency_seconds`, beside its max and the histogram's
    bucket-interpolated p99), the hit ratio and the busy share;
+5g. the DAS erasure-coding lane (`das_main_path`) through the port's
+   compiled das mainnet spec (`build_spec("das", "mainnet")`, its
+   `das_kernels` on the card): (a) `extend_data` on one slot's blobs,
+   INITIAL_ACTIVE_SHARDS = 64 of 16,384 points each
+   (`testlib/blobs.slot_blobs`, RandomState(--seed)), launch counts zeroed
+   before and read after (K22 twice and K23 four times a blob); every first
+   half equals its data, and the slot's 64 extension NTTs again as one
+   (64, 32,768) K22 call equal K22's plain version on the card and the
+   spec's second halves; one blob's (1, 16,384) inverse and (1, 32,768)
+   forward NTT and K23 at M = 32,768 equal their plain versions; (b)
+   `reconstruct_extended_data` of blob 0 with 256 of its 4,096 samples
+   withheld (2,048 points; withholding stops there because the zero
+   polynomial stays on the host and is quadratic), counted (K22 six times),
+   equal to (a)'s extension; twins with one value altered and with 2,049
+   samples withheld must raise AssertionError; (c) `sample_data` and
+   `verify_sample` of a 16-point blob with `kzg.insecure_test_setup` (host
+   KZG; the spec's `ifft` on K22), and a forged sample refused. It prints
+   `das_extend_ms` (the median blob), `das_extend_slot_ms`,
+   `das_recover_ms` with its stages (host zero polynomial, NTT calls by
+   host wall and by CUDA events, host pointwise and layout) and the busy
+   shares (CUDA-event device time over the wall);
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -135,7 +156,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K20 and K21 on the read lane's first flush (8 trees of 2**18 chunks, 512
    queries), bit-equal to their plain versions there, K20's least time
    K*(C-1) hashes of K1's SASS instructions, K21's its rows read and written
-   once, K21 beside `index_select` over the rows it gathers.
+   once, K21 beside `index_select` over the rows it gathers; K22 at the
+   DAS lane's (64, 32,768) forward, (1, 16,384) inverse and (1, 32,768)
+   forward, and K23's product at M = 32,768 and its inverse there, their
+   least time from (n/2)·log2 n Fr products (plus n for the 1/n scale) or M
+   products times the instructions of K23's product in its SASS, or the
+   bytes read and written once.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -189,6 +215,10 @@ MULTIPROOF_SHAPES = ((8, 1 << 18, 512, False), (1, 1, 4, False), (2, 2, 8, False
 PROOF_KERNELS = ("multiproof_heap", "multiproof_siblings")
 PROOF_ROUNDS = 3         # cold, then two epochs each followed by a warm round
 PROOF_ORACLE_CHECKS = 8  # branches a round also held against build_chunk_proof
+DAS_KERNELS = ("fr_ntt", "fr_ops")
+DAS_PRESET = "mainnet"   # 64 blobs of 16,384 points a slot
+DAS_WITHHELD = 256       # samples withheld from the reconstructed blob (of 4,096)
+DAS_SAMPLE_POINTS = 16   # the sampling part's blob: 32 points extended, 4 samples
 
 
 class SmokeFailure(RuntimeError):
@@ -1503,9 +1533,304 @@ def multiproof_rows(inputs, launches, err, sass_sha, bound) -> list:
     return [k20, k21]
 
 
-def main() -> int:
+class FrClock:
+    """While active: a CUDA event pair around every kernel entry call (the
+    C function a wrapper launches through `build.entry`: K22's log2 n stage
+    grids, K23's one), and the host clock around ops/fr's `ntt_ints` and
+    `inv_ints` and crypto/das's `_zero_poly`: the DAS stages' device and
+    host times. Events around the whole wrapper would also count the host
+    work inside it (allocations, checks) while the card waits. The events
+    add a few microseconds a call."""
+
+    def __enter__(self):
+        import torch
+
+        from consensus_specs_tpu_torch.crypto import das
+        from consensus_specs_tpu_torch.kernels import build
+        from consensus_specs_tpu_torch.ops import fr
+
+        self.events, self.host = [], Counter()
+        entry = build.entry
+
+        def timed_entry(*spec):
+            fn = entry(*spec)
+
+            def launch(*args):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                rc = fn(*args)
+                ev[1].record()
+                self.events.append(ev)
+                return rc
+            return launch
+
+        def host(name, fn):
+            def wrapped(*args, **kw):
+                t0 = time.perf_counter()
+                res = fn(*args, **kw)
+                self.host[name] += 1e3 * (time.perf_counter() - t0)
+                return res
+            return wrapped
+
+        self.saved = [(build, "entry", entry), (fr, "ntt_ints", fr.ntt_ints),
+                      (fr, "inv_ints", fr.inv_ints), (das, "_zero_poly", das._zero_poly)]
+        build.entry = timed_entry
+        fr.ntt_ints, fr.inv_ints = host("ntt_ints", fr.ntt_ints), host("inv_ints", fr.inv_ints)
+        das._zero_poly = host("zero_poly", das._zero_poly)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def device_ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def das_main_path(dev, seed, err) -> tuple:
+    """Phase 5g, the DAS lane (see the module docstring): (a) the compiled
+    das mainnet spec's `extend_data` on one slot's seeded blobs, (b)
+    `reconstruct_extended_data` of one blob with DAS_WITHHELD samples
+    withheld and its two failing twins, (c) `sample_data` / `verify_sample`
+    at DAS_SAMPLE_POINTS points. Returns (the lane's numbers, K22/K23
+    launches by part, the kernel rows' inputs)."""
+    import statistics
+
     import torch
 
+    from consensus_specs_tpu_torch.compiler import build_spec
+    from consensus_specs_tpu_torch.crypto import bls, kzg, kzg_shim
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import fr
+    from consensus_specs_tpu_torch.testlib import blobs as tblobs
+
+    spec = build_spec("das", DAS_PRESET, device=dev)
+    n = tblobs.blob_points(spec)
+    t0 = time.perf_counter()
+    data = tblobs.slot_blobs(spec, seed)
+    out = dict(das_inputs_s=time.perf_counter() - t0, blobs=len(data), points=n)
+    # set-up: the twiddle tables of the lane's three transforms, built once
+    # a process on the host (inside the first call's CUDA events otherwise)
+    t0 = time.perf_counter()
+    for size, inverse in ((n, True), (2 * n, False), (2 * n, True)):
+        fr.twiddles(size, inverse, dev)
+    out["das_twiddles_s"] = time.perf_counter() - t0
+    print(f"das inputs: {len(data)} blobs of {n} points (RandomState({seed})) in "
+          f"{out['das_inputs_s']:.1f} s, twiddle tables in {out['das_twiddles_s']:.2f} s "
+          "(host)", flush=True)
+    parts = {}
+
+    def counted(part):
+        parts[part] = {k: build.LAUNCHES[k] for k in DAS_KERNELS}
+
+    # (a) one slot's extensions through the spec
+    published, each = [], []
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with FrClock() as clock:
+        wall0 = time.perf_counter()
+        for blob in data:
+            t0 = time.perf_counter()
+            published.append(spec.extend_data(blob))
+            each.append(1e3 * (time.perf_counter() - t0))
+        slot_ms = 1e3 * (time.perf_counter() - wall0)
+        ext_device_ms = clock.device_ms()
+    counted("extension")
+    require(parts["extension"] == {"fr_ntt": 2 * len(data), "fr_ops": 4 * len(data)},
+            f"the extensions launched {parts['extension']}: want K22 twice and K23 four "
+            "times a blob")
+    require(all(spec.unextend_data(p) == b for p, b in zip(published, data)),
+            "an extension's first half differs from its data")
+    # the slot's extension NTTs again as one batch, held against the plain
+    # version on the card and against the spec's second halves
+    with Aside():
+        perm = fr.bit_reverse_perm(n).to(dev)
+        words = torch.from_numpy(fr.ints_to_words([v for b in data for v in b])).to(dev)
+        r2 = torch.from_numpy(fr.ints_to_words([fr.R2_MOD_R])[0].copy()).to(dev)
+        one = torch.from_numpy(fr.ints_to_words([1])[0].copy()).to(dev)
+        mont = fr.fr_ops(fr.OP_MUL, words, r2).reshape(len(data), n, 8)[:, perm]
+        coeffs = fr.ntt(mont, inverse=True)
+        padded = torch.cat([coeffs, torch.zeros_like(coeffs)], dim=1).contiguous()
+        full = fr.ntt(padded)
+        full_plain = fr.ntt_plain(padded)
+        torch.cuda.synchronize()
+        err["fr_ntt"] = max(err["fr_ntt"], max_abs_err(full, full_plain))
+        require(torch.equal(full, full_plain),
+                f"K22 at ({len(data)}, {2 * n}) differs from its plain version")
+        odd = fr.fr_ops(fr.OP_MUL, full[:, 1::2].reshape(-1, 8).contiguous(), one)
+        odd = odd.reshape(len(data), n, 8)[:, perm]
+        want = torch.from_numpy(fr.ints_to_words([v for p in published for v in p[n:]])).to(dev)
+        require(torch.equal(odd.reshape(-1, 8), want),
+                "the batched extension differs from the spec's second halves")
+        for x, inverse in ((mont[:1].contiguous(), True), (padded[:1].contiguous(), False)):
+            got, plain = fr.ntt(x, inverse), fr.ntt_plain(x, inverse)
+            err["fr_ntt"] = max(err["fr_ntt"], max_abs_err(got, plain))
+            require(torch.equal(got, plain), f"K22 at (1, {x.shape[1]}) differs from its plain "
+                    "version")
+        conv = words[:2 * n].contiguous()
+        for op, b in ((fr.OP_MUL, r2), (fr.OP_MUL, one), (fr.OP_INV, None)):
+            got, plain = fr.fr_ops(op, conv, b), fr.fr_ops_plain(
+                op, conv, None if b is None else b.expand_as(conv))
+            err["fr_ops"] = max(err["fr_ops"], max_abs_err(got, plain))
+            require(torch.equal(got, plain), f"K23 op {op} at M={2 * n} differs from its plain "
+                    "version")
+    print(f"das extension check: {len(data)} first halves = data; the ({len(data)}, {2 * n}) "
+          f"batch of extension NTTs = K22's plain version = the spec's second halves; one "
+          f"blob's (1, {n}) inverse and (1, {2 * n}) forward NTT and K23 at M={2 * n} = plain",
+          flush=True)
+
+    # (b) one blob rebuilt from its samples, DAS_WITHHELD withheld
+    samples, gone = tblobs.withheld_samples(spec, published[0], DAS_WITHHELD, seed)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    with FrClock() as clock:
+        t0 = time.perf_counter()
+        rebuilt = spec.reconstruct_extended_data(samples)
+        recover_ms = 1e3 * (time.perf_counter() - t0)
+        rec_device_ms = clock.device_ms()
+        host = dict(clock.host)
+    counted("reconstruction")
+    require(rebuilt == published[0], "the reconstruction differs from the extension")
+    require(parts["reconstruction"]["fr_ntt"] == 6,
+            f"the reconstruction launched K22 {parts['reconstruction']['fr_ntt']} times, not 6")
+    with Aside():
+        altered = list(samples)
+        k = next(i for i, s in enumerate(samples) if s is not None)
+        vals = [int(v) for v in samples[k].data]
+        vals[3] = (vals[3] + 1) % fr.R_MODULUS
+        altered[k] = spec.DASSample(slot=samples[k].slot, shard=samples[k].shard,
+                                    index=samples[k].index,
+                                    data=spec.Vector[spec.BLSPoint, len(vals)](*vals))
+        too_few, _ = tblobs.withheld_samples(spec, published[0], len(samples) // 2 + 1, seed)
+        refused = []
+        for twin in (altered, too_few):
+            try:
+                spec.reconstruct_extended_data(twin)
+                refused.append(False)
+            except AssertionError:
+                refused.append(True)
+    require(refused == [True, True], f"a failing twin was reconstructed: {refused}")
+    stages = dict(zero_poly_host=host.get("zero_poly", 0.0), ntt_device_events=rec_device_ms,
+                  ntt_calls_host_wall=host.get("ntt_ints", 0.0) + host.get("inv_ints", 0.0))
+    stages["pointwise_and_layout_host"] = (recover_ms - stages["zero_poly_host"]
+                                           - stages["ntt_calls_host_wall"])
+    print(f"das reconstruction check: {len(samples)} samples, {len(gone)} withheld "
+          f"({len(gone) * int(spec.POINTS_PER_SAMPLE)} points), rebuilt = the extension; the "
+          f"twin with one value altered and the twin with {len(samples) // 2 + 1} withheld "
+          "raised AssertionError", flush=True)
+
+    # (c) sampling and verification at the tests' width (host KZG)
+    setup = kzg.insecure_test_setup(2 * DAS_SAMPLE_POINTS + 2)
+    kzg_shim.use_setup(setup)
+    bls_was, bls.bls_active = bls.bls_active, True
+    try:
+        build.reset_launches()
+        t0 = time.perf_counter()
+        small = spec.extend_data(data[0][:DAS_SAMPLE_POINTS])
+        drawn = spec.sample_data(spec.Slot(0), spec.Shard(0), small)
+        commitment = spec.commit_to_data(spec.ifft(spec.reverse_bit_order_list(small)))
+        for s in drawn:
+            spec.verify_sample(s, len(drawn), commitment)
+        sampling_ms = 1e3 * (time.perf_counter() - t0)
+        counted("sampling")
+        with Aside():
+            s = drawn[0]
+            forged = spec.DASSample(slot=s.slot, shard=s.shard, index=s.index, proof=s.proof,
+                                    data=spec.Vector[spec.BLSPoint, len(s.data)](
+                                        *[(int(v) + 1) % fr.R_MODULUS for v in s.data]))
+            try:
+                spec.verify_sample(forged, len(drawn), commitment)
+                forged_refused = False
+            except AssertionError:
+                forged_refused = True
+    finally:
+        kzg_shim.use_setup(None)
+        bls.bls_active = bls_was
+    require(parts["sampling"]["fr_ntt"] == 4, f"sampling launched {parts['sampling']}")
+    require(forged_refused, "a forged sample passed verify_sample")
+    print(f"das sampling check: {len(drawn)} samples of a {DAS_SAMPLE_POINTS}-point blob "
+          f"verified against its commitment ({sampling_ms:.1f} ms, host KZG); a forged sample "
+          "refused", flush=True)
+
+    out.update(das_extend_ms=statistics.median(each), das_extend_slot_ms=slot_ms,
+               das_extend_each_ms=each, das_extend_device_ms=ext_device_ms,
+               das_extend_busy_share=ext_device_ms / slot_ms, das_recover_ms=recover_ms,
+               das_recover_stages_ms=stages, das_recover_busy_share=rec_device_ms / recover_ms,
+               das_busy_share=(ext_device_ms + rec_device_ms) / (slot_ms + recover_ms),
+               withheld_samples=len(gone), withheld_points=len(gone) * int(spec.POINTS_PER_SAMPLE),
+               das_sampling_ms=sampling_ms, sampling_points=DAS_SAMPLE_POINTS,
+               sampling_samples=len(drawn), twins_refused=refused, forged_refused=forged_refused)
+    inputs = dict(batch=padded, inverse=mont[:1].contiguous(), forward=padded[:1].contiguous(),
+                  conv=conv, r2=r2)
+    return out, parts, inputs
+
+
+def das_rows(inputs, parts, err, sass_fr_mul, bound) -> list:
+    """K22 at the slot's (64, 32,768) batch of extension NTTs, one blob's
+    (1, 16,384) inverse and (1, 32,768) forward; K23 at the conversions'
+    M = 32,768 (and the recovery's inversions there): each timed by CUDA
+    events beside its plain version, its least time from (n/2)·log2 n Fr
+    products (plus n for the inverse's 1/n) of K23's product SASS count, or
+    the bytes read and written once."""
+    from consensus_specs_tpu_torch.ops import fr
+
+    def k22(x, inverse):
+        b, n = x.shape[0], x.shape[1]
+        products = b * ((n // 2) * (n.bit_length() - 1) + (n if inverse else 0))
+        return dict(shape=f"B={b} n={n} {'inverse' if inverse else 'forward'}",
+                    ms=time_ms(lambda: fr.ntt(x, inverse), 10),
+                    plain_ms=time_ms(lambda: fr.ntt_plain(x, inverse), 1, warmup=0),
+                    fr_products=products,
+                    **bound(sass_fr_mul * products, 2 * 32 * b * n + 32 * (n - 1)))
+
+    def k23(op, x, b):
+        m = x.shape[0]
+        e = fr.R_MODULUS - 2  # the inverse: a square a bit of e, a product a set bit
+        products = m * ((e.bit_length() + bin(e).count("1")) if op == fr.OP_INV else 1)
+        bb = None if b is None else b.expand_as(x)
+        return dict(shape=f"M={m} {'inv' if op == fr.OP_INV else 'mul'}",
+                    ms=time_ms(lambda: fr.fr_ops(op, x, b), 20),
+                    plain_ms=time_ms(lambda: fr.fr_ops_plain(op, x, bb), 1, warmup=0),
+                    fr_products=products,
+                    **bound(sass_fr_mul * products, 2 * 32 * m + (32 if b is not None else 0)))
+
+    first, *more = (k22(inputs["batch"], False), k22(inputs["inverse"], True),
+                    k22(inputs["forward"], False))
+    ntt_row = dict(name="fr_ntt", route="cuda", source="consensus_specs_tpu_torch/csrc/ntt.cu",
+                   replaces="consensus_specs_tpu/ops/fr_jax.py:106", **first,
+                   **{r["shape"]: r for r in more})
+    conv, *inv = (k23(fr.OP_MUL, inputs["conv"], inputs["r2"]),
+                  k23(fr.OP_INV, inputs["conv"], None))
+    ops_row = dict(name="fr_ops", route="cuda", source="consensus_specs_tpu_torch/csrc/ntt.cu",
+                   replaces="consensus_specs_tpu/ops/limb_mont.py:39", **conv,
+                   **{r["shape"]: r for r in inv})
+    rows = [ntt_row, ops_row]
+    for row in rows:
+        name = row["name"]
+        row.update(launches=parts["extension"][name] + parts["reconstruction"][name],
+                   launches_by_part={p: c[name] for p, c in parts.items()},
+                   max_abs_err=err[name], bit_equal=err[name] == 0.0, library_ms=None,
+                   library_null_reason="no PyTorch call computes 255-bit modular arithmetic "
+                                       "(torch.fft is floating point)")
+        for r in [row] + [v for v in row.values() if isinstance(v, dict) and "ms" in v]:
+            print(f"kernel {name} ({r['shape']}): ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} launches {row['launches']} "
+                  f"{row['launches_by_part']}", flush=True)
+    return rows
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0, help="the DAS lane's blobs (phase 5g)")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs "
               "an NVIDIA card", file=sys.stderr)
@@ -1756,7 +2081,8 @@ def main() -> int:
           f"launches={launches} max_memory_allocated={peak} (beside it the BLS stacks' "
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
-        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS,
+        require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS
+                + DAS_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -1897,6 +2223,20 @@ def main() -> int:
           f"sched_dispatch_total{{path=device}}={proof_out['sched_dispatch_device']} "
           f"sched_degraded_total={proof_out['sched_degraded']} breaker "
           f"{proof_out['breaker']} launches={proof_launches}", flush=True)
+
+    # 5g. the DAS lane: one slot's 64 blobs of 16,384 points extended through
+    # the compiled das mainnet spec, one blob reconstructed, sampling
+    das_out, das_parts, das_inputs = das_main_path(dev, args.seed, err)
+    stages = das_out["das_recover_stages_ms"]
+    print(f"das lane main path: das_extend_ms={das_out['das_extend_ms']:.4f} (median of "
+          f"{das_out['blobs']}) das_extend_slot_ms={das_out['das_extend_slot_ms']:.4f} (device "
+          f"{das_out['das_extend_device_ms']:.4f} by CUDA events, busy share "
+          f"{das_out['das_extend_busy_share']:.4f}) das_recover_ms={das_out['das_recover_ms']:.4f} "
+          f"(zero polynomial {stages['zero_poly_host']:.4f} host; NTT and inverse calls "
+          f"{stages['ntt_calls_host_wall']:.4f} host wall, {stages['ntt_device_events']:.4f} "
+          f"device by CUDA events; pointwise and layout {stages['pointwise_and_layout_host']:.4f} "
+          f"host; busy share {das_out['das_recover_busy_share']:.4f}) busy share "
+          f"{das_out['das_busy_share']:.4f} launches={das_parts}", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -2054,6 +2394,9 @@ def main() -> int:
               f"launches a call {r['launches_a_call']}", flush=True)
     with Aside():
         rows += multiproof_rows(proof_inputs, proof_launches, err, sass["sha256_64b"], bound)
+    sass_fr_mul = sass_instructions("ntt", "fr_ops_kernelILi0E")
+    with Aside():
+        rows += das_rows(das_inputs, das_parts, err, sass_fr_mul, bound)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -2067,7 +2410,8 @@ def main() -> int:
         "forkchoice_path": dict(fc_out, launches=fc_parts),
         "spec_path": dict(spec_out, n=SPEC_N, slots=SPEC_SLOTS, committees=SPEC_COMMITTEES,
                           launches=spec_launches),
-        "proof_path": dict(proof_out, launches=proof_launches)}))
+        "proof_path": dict(proof_out, launches=proof_launches),
+        "das_path": dict(das_out, seed=args.seed, launches=das_parts)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

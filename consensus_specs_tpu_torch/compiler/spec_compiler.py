@@ -15,19 +15,23 @@ What differs from the JAX package's compiler:
   files are the port's own copies (`presets/`, `configs/` beside this
   module), read by `read_key_values`, a `KEY: value` reader for the plain
   integers and quoted strings they hold (no YAML library);
-- the namespace binds the port's `ssz`, the port's BLS shim and
-  `hash_eth2`; the R&D forks (sharding, das, custody_game), whose runtime
-  (KZG shim, custody, DAS) the port does not have yet, raise in
-  `build_spec`;
+- the namespace binds the port's `ssz`, the port's BLS shim,
+  `hash_eth2` and the port's copies of the KZG shim (`kzg`), custody
+  (`custody_crypto`) and DAS (`das_kernels`) modules, so all six forks
+  compile;
 - `accelerated_shuffle` runs `ops/shuffle.shuffled_index_map` on the
   device `build_spec` was given (K4 + K5 on "cuda", the plain versions on
   "cpu"); a failed launch raises, it never returns None to fall back to the
-  scalar loop.
+  scalar loop;
+- `das_kernels` is crypto/das with its NTT functions bound to that device
+  (K22 + K23 on "cuda", the plain versions on "cpu"), the same way.
 """
 from __future__ import annotations
 
+import inspect
 import re
 import types as pytypes
+from functools import partial
 from pathlib import Path
 
 SPEC_DIR = Path(__file__).resolve().parents[2] / "specs"
@@ -187,11 +191,6 @@ class Config:
         return f"Config({self._values!r})"
 
 
-# The forks the port compiles; the others need runtime modules the port has
-# not copied yet (ROADMAP A2: the KZG shim, custody and DAS).
-SUPPORTED_FORKS = ("phase0", "altair", "bellatrix")
-
-
 def _parse_scalar(text: str):
     """A preset or config value: a decimal integer or a quoted string."""
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
@@ -244,7 +243,8 @@ def _runtime_namespace(device) -> dict:
     from typing import Any, Callable, Dict, List as PyList, Optional, Sequence, Set, Tuple
 
     from .. import ssz
-    from ..crypto import bls
+    from ..crypto import bls, kzg_shim
+    from ..crypto import custody as custody_crypto
     from ..utils.hash import hash_eth2
 
     ns: dict = {
@@ -267,7 +267,8 @@ def _runtime_namespace(device) -> dict:
         "calc_merkle_tree_from_leaves": ssz.calc_merkle_tree_from_leaves,
         "get_merkle_proof": ssz.get_merkle_proof,
         # crypto
-        "bls": bls, "hash": hash_eth2,
+        "bls": bls, "hash": hash_eth2, "kzg": kzg_shim,
+        "custody_crypto": custody_crypto, "das_kernels": make_das_kernels(device),
         # python runtime
         "dataclass": dataclass, "field": field, "deepcopy": _pycopy.deepcopy,
         "Any": Any, "Callable": Callable, "Dict": Dict, "Optional": Optional,
@@ -299,23 +300,39 @@ def make_accelerated_shuffle(device):
     return accelerated_shuffle
 
 
+def make_das_kernels(device) -> pytypes.SimpleNamespace:
+    """The spec's `das_kernels` (specs/das/das-core.md: `ifft`,
+    `das_fft_extension`, `recover_data`, `verify_sample`): every public
+    name of crypto/das, the functions that take `device` bound to `device`
+    (K22 + K23 on "cuda", the plain versions on "cpu"). Errors propagate."""
+    from ..crypto import das
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    names = {}
+    for name in dir(das):
+        obj = getattr(das, name)
+        if name.startswith("_") or isinstance(obj, pytypes.ModuleType):
+            continue
+        if inspect.isfunction(obj) and "device" in inspect.signature(obj).parameters:
+            obj = partial(obj, device=dev)
+        names[name] = obj
+    return pytypes.SimpleNamespace(**names)
+
+
 _SPEC_CACHE: dict = {}
 
 
 def _check_fork(fork: str) -> None:
-    if fork not in SUPPORTED_FORKS:
-        if fork in FORK_ORDER:
-            raise NotImplementedError(
-                f"the port compiles {SUPPORTED_FORKS}; {fork!r} needs the KZG shim, custody "
-                "and DAS runtime, which the port has not copied yet (ROADMAP A2)")
+    if fork not in FORK_ORDER:
         raise ValueError(f"unknown fork {fork!r} (choose from {FORK_ORDER})")
 
 
 def build_spec(fork: str, preset_name: str, config_overrides: dict | None = None,
                device="cuda") -> pytypes.ModuleType:
     """Compile the spec for (fork, preset) into a fresh module object whose
-    `accelerated_shuffle` runs on `device` ("cuda" by default; raises
-    without a card unless the caller passes "cpu")."""
+    `accelerated_shuffle` and `das_kernels` run on `device` ("cuda" by
+    default; raises without a card unless the caller passes "cpu")."""
     _check_fork(fork)
     forks = FORK_ORDER[: FORK_ORDER.index(fork) + 1]
     ns = _runtime_namespace(device)

@@ -7,11 +7,12 @@ the round trip is exact.
 
 Field values: the JAX limb backend (ops/fp_jax.py) holds an Fp as (..., 24)
 uint32 sixteen-bit limbs, the port as (..., 12) int32 words, both the
-Montgomery value a·2^384 mod p, so the conversion is a repacking. An Fp2 is
-JAX's (re, im) tuple and the port's (..., 2, 12); an Fp12 JAX's six Fp2
-coefficients and the port's (..., 12, 12). JAX's RNS backend (its default)
-has another layout: its values cross as canonical ints (its own
-`mont_batch_to_ints`) and `fp.ints_to_mont_words`.
+Montgomery value a·2^384 mod p, so the conversion is a repacking (the same
+for Fr: ops/fr_jax.py's (..., 16) limbs and ops/fr.py's (..., 8) words, R =
+2^256 in both). An Fp2 is JAX's (re, im) tuple and the port's (..., 2, 12);
+an Fp12 JAX's six Fp2 coefficients and the port's (..., 12, 12). JAX's RNS
+backend (its default) has another layout: its values cross as canonical
+ints (its own `mont_batch_to_ints`) and `fp.ints_to_mont_words`.
 
 A fork-choice StoreSnapshot has the same numpy fields in both packages
 (`snapshot_from_jax`).
@@ -63,14 +64,16 @@ def epoch_config_from_dict(d: dict) -> EpochConfig:
 
 
 def fp_from_jax_limbs(limbs) -> torch.Tensor:
-    """JAX limb-backend Fp (..., 24) uint32 -> the port's (..., 12) int32."""
+    """JAX limb-backend Fp (..., 24) uint32 -> the port's (..., 12) int32;
+    any width alike: JAX's Fr (..., 16) limbs -> the port's (..., 8) words."""
     a = np.asarray(limbs).astype(np.uint32)
     words = a[..., 0::2] | (a[..., 1::2] << np.uint32(16))
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
 
 
 def fp_to_jax_limbs(words: torch.Tensor) -> np.ndarray:
-    """The port's (..., 12) int32 -> JAX limb-backend (..., 24) uint32."""
+    """The port's (..., 12) int32 -> JAX limb-backend (..., 24) uint32; any
+    width alike (Fr: (..., 8) -> (..., 16))."""
     w = words.detach().cpu().numpy().view(np.uint32)
     return np.stack([w & np.uint32(0xFFFF), w >> np.uint32(16)], -1).reshape(
         *w.shape[:-1], 2 * w.shape[-1])

@@ -23,8 +23,11 @@ under torch.profiler and another under cProfile), and the spec's
 mainnet spec, real keys, blocks at slots 8189-8193 as
 `chip_smoke.py` phase 5e builds them): the importer's epoch-256 block and
 the next block under torch.profiler, the proposer's epoch-256 block and the
-importer's block before the boundary under cProfile. For each window it
-prints the
+importer's block before the boundary under cProfile, and the DAS lane (the
+compiled das mainnet spec, `testlib/blobs`, seed 0: `extend_data` on one
+slot's 64 blobs of 16,384 points and `reconstruct_extended_data` of one
+blob with 256 of its 4,096 samples withheld under torch.profiler, 8
+extensions under cProfile). For each window it prints the
 host wall time, the device time summed over every device-side record, the
 device busy share (the activities of one stream do not overlap), and the
 activities that took the most device time. The last windows run the K
@@ -194,8 +197,37 @@ def main(argv=None) -> int:
         print(f"host, {label} under cProfile (own time):")
         print("\n".join(line for line in out.getvalue().splitlines() if line.strip())[:4000])
     _profile_read_lane(loop, dev, torch)
+    _profile_das_lane(dev, torch)
     _profile_spec_path(args.spec_n, dev, torch)
     return 0
+
+
+def _profile_das_lane(dev, torch):
+    """The DAS lane's windows (see the module docstring)."""
+    from .compiler import build_spec
+    from .ops import fr
+    from .testlib import blobs
+
+    spec = build_spec("das", "mainnet", device=dev)
+    data = blobs.slot_blobs(spec, 0)
+    n = blobs.blob_points(spec)
+    for size, inverse in ((n, True), (2 * n, False), (2 * n, True)):
+        fr.twiddles(size, inverse, dev)  # set-up, once a process
+    published = [spec.extend_data(data[0])]
+    samples, _ = blobs.withheld_samples(spec, published[0], 256, 0)
+
+    def extend_slot():
+        published[1:] = [spec.extend_data(b) for b in data[1:]]
+
+    def reconstruct():
+        if spec.reconstruct_extended_data(samples) != published[0]:
+            raise RuntimeError("the reconstruction differs from the extension")
+
+    print(f"das lane: {len(data)} blobs of {blobs.blob_points(spec)} points")
+    _print_window(f"das extend_data ({len(data) - 1} blobs)", *_profile(extend_slot, torch))
+    _print_window("das reconstruct_extended_data (256 of 4,096 samples withheld)",
+                  *_profile(reconstruct, torch))
+    _host_profile("8 das extensions", lambda: [spec.extend_data(b) for b in data[:8]], torch)
 
 
 def _profile_read_lane(loop, dev, torch):

@@ -38,6 +38,7 @@ from consensus_specs_tpu_torch.ops import bls12 as tbls
 from consensus_specs_tpu_torch.forkchoice import synthetic as tfc_synthetic
 from consensus_specs_tpu_torch.ops import forkchoice as tfc_ops
 from consensus_specs_tpu_torch.ops import fp as tfp
+from consensus_specs_tpu_torch.ops import fr as tfr
 from consensus_specs_tpu_torch.ops import sha256 as tsha
 from consensus_specs_tpu_torch.ops import shuffle as tshuffle
 from consensus_specs_tpu_torch.ops.sha256_host import words_to_bytes
@@ -695,3 +696,96 @@ def test_merkle_class_mixed_kinds_on_the_card_match_cpu(cuda, counts):
     assert launches["multiproof_heap"] == sum(
         max(1, levels(c, tmultiproof.HEAP_FOLD_MAX_LEVELS)) for c in buckets("multiproof"))
     assert launches["multiproof_siblings"] == len(buckets("multiproof"))
+
+
+# --- K22 fr_ntt and K23 fr_ops -------------------------------------------------
+
+
+def _fr_words(m, seed, dev):
+    """m canonical Montgomery words on dev, the edge values 0, 1, r - 1 and
+    R mod r first."""
+    rng = np.random.default_rng(seed)
+    r = tfr.R_MODULUS
+    vals = [0, 1, r - 1, tfr.R_MOD_R] + [int.from_bytes(rng.bytes(32), "little") % r
+                                          for _ in range(max(m - 4, 0))]
+    return torch.from_numpy(tfr.ints_to_words(vals[:m])).to(dev)
+
+
+# the plain inverse costs 380 plain products: held at M <= 1000
+@pytest.mark.parametrize("op,m", [(op, m) for op in (tfr.OP_MUL, tfr.OP_ADD, tfr.OP_SUB)
+                                  for m in (1, 1000, 32768)]
+                         + [(tfr.OP_INV, 1), (tfr.OP_INV, 1000)])
+def test_fr_ops_kernel_matches_plain(cuda, op, m):
+    a = _fr_words(m, m + op, cuda)
+    b = _fr_words(m, m + 7, cuda).flip(0).contiguous()
+    if op != tfr.OP_INV:
+        b[-1] = 0  # sub with b = 0
+    bb = None if op == tfr.OP_INV else b
+    build.reset_launches()
+    got = tfr.fr_ops(op, a, bb)
+    assert build.LAUNCHES["fr_ops"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfr.fr_ops_plain(op, a, bb))
+    if op != tfr.OP_INV:  # b as one (8,) row, read by every thread
+        assert torch.equal(tfr.fr_ops(op, a, b[0]), tfr.fr_ops_plain(op, a, b[0].expand_as(a)))
+
+
+@pytest.mark.parametrize("shape,inverse", [((64, 32768), False), ((1, 16384), True),
+                                           ((1, 32768), False), ((3, 1), False), ((3, 1), True),
+                                           ((3, 2), False), ((3, 2), True), ((5, 16), True),
+                                           ((2, 4096), True)])
+def test_fr_ntt_kernel_matches_plain(cuda, shape, inverse):
+    """K22 at the DAS lane's shapes (a slot's 64 extensions, a blob's
+    inverse, one extension) and at the edges n = 1 and n = 2."""
+    x = _fr_words(shape[0] * shape[1], shape[1] + int(inverse), cuda).reshape(*shape, 8)
+    build.reset_launches()
+    got = tfr.ntt(x, inverse)
+    assert build.LAUNCHES["fr_ntt"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfr.ntt_plain(x, inverse))
+
+
+def test_fr_ntt_round_trip_and_host_dft_on_card(cuda):
+    x = _fr_words(4 * 256, 11, cuda).reshape(4, 256, 8)
+    assert torch.equal(tfr.ntt(tfr.ntt(x), inverse=True), x)
+    vals = [int(v) for v in np.random.default_rng(12).integers(0, 2**62, 16)]
+    from consensus_specs_tpu_torch.ops.fr_host import host_ntt
+
+    assert tfr.ntt_ints(vals, False, cuda) == host_ntt(vals)
+    assert tfr.ntt_ints(vals, True, cuda) == host_ntt(vals, inverse=True)
+
+
+def test_fr_kernels_check_their_inputs(cuda):
+    with pytest.raises(ValueError, match="power of two"):
+        tfr.ntt(torch.zeros((2, 12, 8), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        tfr.fr_ops(tfr.OP_MUL, torch.zeros((4, 8), dtype=torch.int32, device=cuda),
+                   torch.zeros((4, 8), dtype=torch.int32))
+
+
+def test_das_on_card_matches_cpu(cuda):
+    """The port's das module and compiled das spec on the card (K22 + K23)
+    equal the same on the CPU (the plain versions), with the launches the
+    path implies: two K22 and four K23 an extension, six K22 a recovery."""
+    from consensus_specs_tpu_torch.compiler import spec_compiler as tcomp
+    from consensus_specs_tpu_torch.crypto import das as tdas
+
+    rng = np.random.default_rng(13)
+    data = [int.from_bytes(rng.bytes(32), "little") % tdas.MODULUS for _ in range(1024)]
+    build.reset_launches()
+    full = tdas.extend_data(data, device=cuda)
+    assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (2, 4)
+    assert full == tdas.extend_data(data, device="cpu")
+    keep = {i: full[i] for i in sorted(random.Random(14).sample(range(2048), 1100))}
+    build.reset_launches()
+    assert tdas.recover_data(keep, 2048, device=cuda) == full
+    assert build.LAUNCHES["fr_ntt"] == 6
+    spec = tcomp.build_spec("das", "minimal", device=cuda)
+    cpu_spec = tcomp.build_spec("das", "minimal", device="cpu")
+    published = spec.extend_data(data[:256])
+    assert published == cpu_spec.extend_data(data[:256])
+    pps = int(spec.POINTS_PER_SAMPLE)
+    subgroups = [spec.reverse_bit_order_list(published[i * pps:(i + 1) * pps])
+                 for i in range(len(published) // pps)]
+    partial = [sg if i % 3 else None for i, sg in enumerate(subgroups)]
+    assert spec.recover_data(partial) == published

@@ -1,9 +1,10 @@
 """The port's spec compiler (consensus_specs_tpu_torch/compiler) against the
-JAX package's (consensus_specs_tpu/compiler): for phase0, altair and
-bellatrix under the minimal and mainnet presets, the same public constants
-with the same values, the same runtime config and the same rendered source
-text; the port's `KEY: value` reader against PyYAML on every copied preset
-and config file. Exact equality throughout."""
+JAX package's (consensus_specs_tpu/compiler): for all six forks (phase0,
+altair, bellatrix and the R&D overlays sharding, das, custody_game) under
+the minimal and mainnet presets, the same public constants with the same
+values, the same runtime config, the same public names and the same
+rendered source text; the port's `KEY: value` reader against PyYAML on every
+copied preset and config file. Exact equality throughout."""
 import types
 
 import pytest
@@ -12,8 +13,9 @@ import yaml
 from consensus_specs_tpu.compiler import spec_compiler as jcomp
 from consensus_specs_tpu_torch.compiler import spec_compiler as tcomp
 
-FORKS = ("phase0", "altair", "bellatrix")
+FORKS = ("phase0", "altair", "bellatrix", "sharding", "das", "custody_game")
 PRESETS = ("minimal", "mainnet")
+PRESET_FORKS = tuple(f for f in FORKS if f != "das")  # das has no preset file in either package
 
 
 def _public_constants(spec) -> dict:
@@ -34,7 +36,7 @@ def test_compiled_spec_constants_match_jax(fork, preset):
             assert type(mine[name]).__name__ == type(value).__name__, name
     assert ours.config._values == ref.config._values
     public = {k for k in vars(ref) if not k.startswith("_")}
-    assert public - {"kzg", "custody_crypto", "das_kernels"} <= set(vars(ours))
+    assert public <= set(vars(ours))
     assert ours.fork == fork and ours.preset_name == preset
 
 
@@ -45,7 +47,7 @@ def test_render_spec_source_matches_jax(fork, preset):
 
 
 @pytest.mark.parametrize("preset", PRESETS)
-@pytest.mark.parametrize("fork", FORKS)
+@pytest.mark.parametrize("fork", PRESET_FORKS)
 def test_key_value_reader_matches_yaml(fork, preset):
     path = tcomp.PRESET_DIR / preset / f"{fork}.yaml"
     assert tcomp.read_key_values(path) == yaml.safe_load(path.read_text())
@@ -60,10 +62,39 @@ def test_config_reader_matches_jax(preset):
     assert tcomp.load_config(preset) == jcomp.load_config(preset)
 
 
-@pytest.mark.parametrize("fork", ("sharding", "das", "custody_game"))
-def test_rd_forks_raise_naming_the_roadmap_item(fork):
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tcomp.build_spec(fork, "minimal", device="cpu")
+@pytest.mark.parametrize("preset", PRESETS)
+def test_preset_files_are_the_jax_packages(preset):
+    """The port copies every preset file the JAX package has, and no other."""
+    ours = sorted(p.name for p in (tcomp.PRESET_DIR / preset).glob("*.yaml"))
+    theirs = sorted(p.name for p in (jcomp.CONFIG_DIR / "presets" / preset).glob("*.yaml"))
+    assert ours == theirs == sorted(f"{f}.yaml" for f in PRESET_FORKS)
+
+
+def test_unknown_fork_raises():
+    with pytest.raises(ValueError, match="unknown fork"):
+        tcomp.build_spec("eip4844", "minimal", device="cpu")
+    with pytest.raises(ValueError, match="unknown fork"):
+        tcomp.render_spec_source("eip4844", "minimal")
+
+
+def test_das_kernels_are_bound_to_the_spec_device():
+    """`das_kernels` carries crypto/das's public names, its NTT functions
+    bound to the spec's device; the compiled spec's extension equals the
+    das module's on that device."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import das
+
+    device = "cpu"
+    spec = tcomp.build_spec("das", "minimal", device=device)
+    dk = spec.das_kernels
+    public = {k for k in vars(das) if not k.startswith("_")
+              and not isinstance(getattr(das, k), types.ModuleType)}
+    assert public == set(vars(dk))
+    assert dk.recover_data.keywords == {"device": torch.device(device)}
+    assert dk.MODULUS == das.MODULUS and dk.root_of_unity is das.root_of_unity
+    data = list(range(1, 17))
+    assert spec.das_fft_extension(data) == das.das_fft_extension(data, device=device)
 
 
 def test_build_spec_is_fresh_and_get_spec_caches():
