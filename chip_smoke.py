@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG,
-fork-choice, spec state-transition, light-client read and DAS paths on one
-NVIDIA card.
+fork-choice, spec state-transition, light-client read and DAS paths, and
+the BLS flush over the RNS field, on one NVIDIA card.
 
     python3 chip_smoke.py [--seed S]
 
@@ -30,6 +30,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    multiproof_heap and K21 multiproof_siblings at the read lane's (K, C, Q)
    = (8, 2**18, 512) and at (1, 1, 4), (2, 2, 8), (4, 64, 16) with shallow
    queries only, and (3, 4096, 64) (two K20 launches), pad queries included;
+   K24 rns_ops at all 11 op codes on 300 seeded residue vectors with the
+   field's edges (0, 1, p, 2p, -1, -p, R, 3p - 1), sum_stack over 1, 3 and 8
+   rows, mont_reduce also on wide products and on 127 inputs whose q lies
+   next to M_A/4 (the float32 alpha's boundary);
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -137,6 +141,21 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    `das_recover_ms` with its stages (host zero polynomial, NTT calls by
    host wall and by CUDA events, host pointwise and layout) and the busy
    shares (CUDA-event device time over the wall);
+5h. phase 5's BLS flushes over the RNS field backend
+   (`ops/bls12.set_field_backend("rns")`: ops/bls12_field.py over K24), launch
+   counts zeroed before and read after: the block, the block with phase 5's
+   bad signature, the gossip aggregates, the gossip batch with phase 5's bad
+   item (the per-item pass must name it, as the limb path's does), the
+   shim's 20 calls and their bad twin; every verdict, flush record and
+   Miller-loop count equal to phase 5's, K24 launched and K8-K12 not. It
+   prints `bls_block_flush_rns_ms` and `bls_gossip_flush_rns_ms` (CUDA events
+   and host wall; the block's after one uncounted first flush, which is
+   timed on its own as `bls_block_flush_rns_first_ms` with its cudaMalloc
+   calls and garbage-collector passes beside the warm flush's), K24
+   launches by op code and part, and, from uncounted reruns under
+   torch.profiler, the kernels' device time, the busy share (that time over
+   the counted flush's host wall) and the commonest mont_mul and
+   mont_reduce shapes;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -161,7 +180,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    forward, and K23's product at M = 32,768 and its inverse there, their
    least time from (n/2)·log2 n Fr products (plus n for the 1/n scale) or M
    products times the instructions of K23's product in its SASS, or the
-   bytes read and written once.
+   bytes read and written once; K24's mont_mul and mont_reduce at the block
+   and gossip flushes' commonest M, bit-equal to the plain version there,
+   their least time from the instructions one mont_mul executes (its SASS,
+   the extensions' loop bodies 32 times) x M.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -216,6 +238,7 @@ PROOF_KERNELS = ("multiproof_heap", "multiproof_siblings")
 PROOF_ROUNDS = 3         # cold, then two epochs each followed by a warm round
 PROOF_ORACLE_CHECKS = 8  # branches a round also held against build_chunk_proof
 DAS_KERNELS = ("fr_ntt", "fr_ops")
+RNS_KERNELS = ("rns_ops",)
 DAS_PRESET = "mainnet"   # 64 blobs of 16,384 points a slot
 DAS_WITHHELD = 256       # samples withheld from the reconstructed blob (of 4,096)
 DAS_SAMPLE_POINTS = 16   # the sampling part's blob: 32 points extended, 4 samples
@@ -494,56 +517,14 @@ def timed(fn):
     return out, ev[0].elapsed_time(ev[1]), 1e3 * (time.perf_counter() - wall0)
 
 
-def bls_main_path(dev, inputs) -> dict:
-    """The flush of one block (131 checks: the randomized path, bucketed to
-    256), the same block with one signature replaced (the per-item path flags
-    exactly it), one slot's gossip aggregates (1024 checks, 64 messages: the
-    grouped path) and that batch with one bad item, and the shim over 20
-    byte-level calls flushed once on the card, then once with a bad one."""
+def shim_flushes(dev, shim) -> dict:
+    """The port's BLS shim over 20 byte-level calls (16 Verify, a
+    FastAggregateVerify of 4 keys, an AggregateVerify of 2, 4 Verify)
+    flushed once on `dev`, then 16 with a bad signature at 9, which must
+    raise for check 9."""
     from consensus_specs_tpu_torch.crypto import bls, bls_torch
-    from consensus_specs_tpu_torch.ops import bls12 as B
-    from consensus_specs_tpu_torch.utils import bucketing
 
-    block, gossip, shim = inputs
-    b = bucketing.pow2_bucket(len(block), 8)
-    plan = bucketing.grouped_plan([c.q1 for c in gossip], 8)
     out = {}
-    loops0 = B.miller_loop_items
-    ok, out["bls_block_flush_ms"], out["bls_block_flush_wall_ms"] = timed(
-        lambda: bls_torch.run_checks(block, dev))
-    out["block_miller_loops"] = B.miller_loop_items - loops0
-    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc", items=b, distinct=b,
-                                                      miller_loops=b + 1)
-            and out["block_miller_loops"] == b + 1,
-            f"block flush: {int(ok.sum())} of {len(block)} ok, {bls_torch.LAST_FLUSH}, "
-            f"{out['block_miller_loops']} Miller loops")
-    bad_at = len(block) // 2 + 1
-    bad = list(block)
-    bad[bad_at] = bls_torch.QueuedCheck(block[bad_at].p1, block[bad_at].q1, block[bad_at].p2,
-                                        block[bad_at + 1].q2)
-    loops0 = B.miller_loop_items
-    ok, out["bls_attribution_ms"], out["bls_attribution_wall_ms"] = timed(
-        lambda: bls_torch.run_checks(bad, dev))
-    out["attribution_miller_loops"] = B.miller_loop_items - loops0
-    require(np.flatnonzero(~ok).tolist() == [bad_at]
-            and out["attribution_miller_loops"] == b + 1 + 2 * b,
-            f"attribution flagged {np.flatnonzero(~ok).tolist()}, not [{bad_at}]")
-    loops0 = B.miller_loop_items
-    ok, out["bls_gossip_flush_ms"], out["bls_gossip_flush_wall_ms"] = timed(
-        lambda: bls_torch.run_checks(gossip, dev))
-    out["gossip_miller_loops"] = B.miller_loop_items - loops0
-    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc_grouped", items=plan.b_n,
-                                                      distinct=plan.b_d,
-                                                      miller_loops=plan.b_d + 1)
-            and out["gossip_miller_loops"] == plan.b_d + 1,
-            f"gossip flush: {int(ok.sum())} ok, {bls_torch.LAST_FLUSH}")
-    bad = list(gossip)
-    at = len(gossip) // 2
-    bad[at] = bls_torch.QueuedCheck(gossip[at].p1, gossip[at].q1, gossip[at].p2,
-                                    gossip[at + 1].q2)
-    p1s, q1s, p2s, q2s = ([getattr(c, k) for c in bad] for k in ("p1", "q1", "p2", "q2"))
-    require(not bls_torch._device_check_all(p1s, q1s, p2s, q2s, dev),
-            "the gossip batch with a bad item passed the randomized check")
     bls.use_device(dev)
     pks, msgs, sigs = shim["pks"], shim["msgs"], shim["sigs"]
     flushes = bls.flush_count
@@ -567,6 +548,66 @@ def bls_main_path(dev, inputs) -> dict:
     except bls.BLSVerificationError as e:
         raised = "[9]" in str(e)
     require(raised, "the shim's flush with a bad signature must raise for check 9")
+    return out
+
+
+def with_bad_item(checks, at):
+    """The checks with item `at` carrying item at + 1's signature."""
+    from consensus_specs_tpu_torch.crypto import bls_torch
+
+    bad = list(checks)
+    bad[at] = bls_torch.QueuedCheck(checks[at].p1, checks[at].q1, checks[at].p2,
+                                    checks[at + 1].q2)
+    return bad
+
+
+def bls_main_path(dev, inputs) -> dict:
+    """The flush of one block (131 checks: the randomized path, bucketed to
+    256), the same block with one signature replaced (the per-item path flags
+    exactly it), one slot's gossip aggregates (1024 checks, 64 messages: the
+    grouped path) and that batch with one bad item, and the shim over 20
+    byte-level calls flushed once on the card, then once with a bad one."""
+    from consensus_specs_tpu_torch.crypto import bls, bls_torch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.utils import bucketing
+
+    block, gossip, shim = inputs
+    b = bucketing.pow2_bucket(len(block), 8)
+    plan = bucketing.grouped_plan([c.q1 for c in gossip], 8)
+    out = {}
+    loops0 = B.miller_loop_items
+    ok, out["bls_block_flush_ms"], out["bls_block_flush_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(block, dev))
+    out["block_miller_loops"] = B.miller_loop_items - loops0
+    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc", items=b, distinct=b,
+                                                      miller_loops=b + 1)
+            and out["block_miller_loops"] == b + 1,
+            f"block flush: {int(ok.sum())} of {len(block)} ok, {bls_torch.LAST_FLUSH}, "
+            f"{out['block_miller_loops']} Miller loops")
+    out["block_bad_at"] = bad_at = len(block) // 2 + 1
+    bad = with_bad_item(block, bad_at)
+    loops0 = B.miller_loop_items
+    ok, out["bls_attribution_ms"], out["bls_attribution_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(bad, dev))
+    out["attribution_miller_loops"] = B.miller_loop_items - loops0
+    require(np.flatnonzero(~ok).tolist() == [bad_at]
+            and out["attribution_miller_loops"] == b + 1 + 2 * b,
+            f"attribution flagged {np.flatnonzero(~ok).tolist()}, not [{bad_at}]")
+    loops0 = B.miller_loop_items
+    ok, out["bls_gossip_flush_ms"], out["bls_gossip_flush_wall_ms"] = timed(
+        lambda: bls_torch.run_checks(gossip, dev))
+    out["gossip_miller_loops"] = B.miller_loop_items - loops0
+    require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc_grouped", items=plan.b_n,
+                                                      distinct=plan.b_d,
+                                                      miller_loops=plan.b_d + 1)
+            and out["gossip_miller_loops"] == plan.b_d + 1,
+            f"gossip flush: {int(ok.sum())} ok, {bls_torch.LAST_FLUSH}")
+    out["gossip_bad_at"] = at = len(gossip) // 2
+    bad = with_bad_item(gossip, at)
+    p1s, q1s, p2s, q2s = ([getattr(c, k) for c in bad] for k in ("p1", "q1", "p2", "q2"))
+    require(not bls_torch._device_check_all(p1s, q1s, p2s, q2s, dev),
+            "the gossip batch with a bad item passed the randomized check")
+    out.update(shim_flushes(dev, shim))
     print(f"bls main path: block flush of {len(block)} checks ok through "
           f"{out['block_miller_loops']} Miller loops; bad signature at {bad_at} attributed "
           f"({out['attribution_miller_loops']} Miller loops); gossip flush of {len(gossip)} "
@@ -711,6 +752,369 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
               f"plain_ms={row['plain_ms']:.3f} library_ms=None fp_muls={row['fp_muls']}",
               flush=True)
     return rows
+
+
+class RnsShapes:
+    """While active: the (op, M) of every `fp_rns.rns_ops` call (K24's
+    shapes), at the cost of one Counter update a call."""
+
+    def __enter__(self):
+        from consensus_specs_tpu_torch.ops import fp_rns
+
+        self.shapes, self.rns_ops = Counter(), fp_rns.rns_ops
+
+        def shaped(op, a, b=None):
+            self.shapes[(fp_rns.OP_NAMES[op], a.shape[-2])] += 1
+            return self.rns_ops(op, a, b)
+
+        fp_rns.rns_ops = shaped
+        return self
+
+    def __exit__(self, *exc):
+        from consensus_specs_tpu_torch.ops import fp_rns
+
+        fp_rns.rns_ops = self.rns_ops
+        return False
+
+    def commonest(self, op: str) -> int:
+        """The M that `op` was called with most often."""
+        return max(((n, m) for (o, m), n in self.shapes.items() if o == op))[1]
+
+
+class HostCosts:
+    """While active: the caching allocator's cudaMalloc calls (the growth of
+    its `segment.all.allocated` count) and Python's garbage-collector passes
+    with their host time; the parts of a flush's first-use cost that a count
+    can name."""
+
+    def __enter__(self):
+        import gc
+
+        import torch
+
+        self.gc_ms, self.gc_passes, self._t0 = 0.0, 0, None
+        self._malloc0 = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        gc.callbacks.append(self._gc)
+        return self
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.gc_ms += 1e3 * (time.perf_counter() - self._t0)
+            self.gc_passes += 1
+
+    def __exit__(self, *exc):
+        import gc
+
+        import torch
+
+        gc.callbacks.remove(self._gc)
+        self.cuda_mallocs = (torch.cuda.memory_stats().get("segment.all.allocated", 0)
+                             - self._malloc0)
+        return False
+
+    def summary(self) -> dict:
+        return dict(cuda_mallocs=self.cuda_mallocs, gc_passes=self.gc_passes, gc_ms=self.gc_ms)
+
+
+def rns_residues(rng, n, dev):
+    """n seeded Montgomery values as RNS residues, the field's edges first:
+    0, 1, p, 2p, values standing for -1 and -p, R mod p, 3p - 1."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fp_rns
+
+    p, ma, mab = fp_rns.P, fp_rns.M_A, fp_rns.M_A * fp_rns.M_B
+    vals = [int.from_bytes(rng.bytes(48), "little") % p * ma % p for _ in range(n)]
+    edges = [0, 1, p, 2 * p, -1, -p, fp_rns.R_MOD_P, 3 * p - 1]
+    vals[:min(n, len(edges))] = edges[:n]
+    return torch.from_numpy(np.stack([fp_rns._residues(v % mab, fp_rns._PRIMES)
+                                      for v in vals])).to(dev)
+
+
+def alpha_boundary_inputs(dev):
+    """mont_reduce inputs whose q = -t·p^-1 mod M_A lies next to M_A/4, where
+    the first extension's float32 alpha decides a floor."""
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fp_rns
+
+    p, ma = fp_rns.P, fp_rns.M_A
+    qs = [ma // 4 + k for k in range(-60, 61)]
+    qs += [ma // 4 + int(ma * f) for f in (2**-20, -2**-20, 2**-23, -2**-23, 2**-25, -2**-25)]
+    return torch.from_numpy(np.stack([fp_rns._residues((-q * p) % ma, fp_rns._PRIMES)
+                                      for q in qs])).to(dev)
+
+
+def check_rns_kernel(dev, err: dict) -> None:
+    """K24 bit-equal to its plain version on the card at every op code: 300
+    seeded residue vectors with the field's edges, sum_stack over 1, 3 and 8
+    rows, mont_reduce also on wide products and on inputs at the alpha
+    boundary, and M = 0 launching nothing."""
+    import torch
+
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    rng = np.random.default_rng(24)
+    a, b = rns_residues(rng, 300, dev), rns_residues(rng, 300, dev).flip(0)
+    cases = []
+    for op in range(len(R.OP_NAMES)):
+        if op == R.OP_SUM_STACK:
+            cases += [(op, (torch.stack([a, b] * 4)[:k],)) for k in (1, 3, 8)]
+        elif op in R._BINARY:
+            cases.append((op, (a, b)))
+        elif op == R.OP_MONT_REDUCE:
+            wide = R.rns_ops(R.OP_MUL_WIDE, a, b)
+            cases.append((op, (torch.cat([a, wide, alpha_boundary_inputs(dev)]),)))
+        else:
+            cases.append((op, (a,)))
+    for op, args in cases:
+        got = R.rns_ops(op, *args)
+        plain = R.rns_ops_plain(op, *args)
+        err["rns_ops"] = max(err["rns_ops"], max_abs_err(got.int(), plain.int()))
+        require(torch.equal(got, plain), f"K24 rns_ops {R.OP_NAMES[op]} differs from its plain "
+                "version")
+    before = build.LAUNCHES["rns_ops"]
+    require(R.rns_ops(R.OP_MONT_MUL, a[:0], b[:0]).shape == (0, 64)
+            and build.LAUNCHES["rns_ops"] == before, "K24 launched for M = 0")
+    print(f"check K24 rns_ops: all {len(R.OP_NAMES)} op codes bit-equal to the plain version on "
+          f"300 residue vectors with 0, 1, p, 2p, -1, -p, R, 3p - 1; sum_stack over 1, 3, 8 rows; "
+          f"mont_reduce on wide products and 127 alpha-boundary inputs; M = 0 launches nothing",
+          flush=True)
+
+
+def rns_main_path(dev, inputs, limb: dict) -> tuple:
+    """Phase 5h: phase 5's BLS flushes under the "rns" field backend (the
+    randomized check and the per-item attribution over ops/bls12_field.py and
+    K24), launch counts zeroed just before and read just after: the block
+    (131 checks, the ungrouped path), the block with phase 5's bad signature
+    (attribution), the gossip aggregates (1,024 checks over 64 messages, the
+    grouped path), the gossip batch with phase 5's bad item (it fails and the
+    per-item pass names it), the shim's 20 calls and their bad twin. Each
+    verdict, flush record and Miller-loop count must be phase 5's ("limb");
+    no K8-K12 launch. Before them, uncounted, the process's first RNS block
+    flush, timed on its own with its allocator and garbage-collector counts
+    (`HostCosts`, also taken on the counted block flush). After them,
+    uncounted, the block and gossip flushes again under torch.profiler: the
+    kernels' device time, set against the counted flush's host wall for the
+    busy share (the profiler slows the host, not the kernels), and K24's
+    calls by op and M. Returns (the numbers, launches, K24 launches by op and
+    part, the K24 shapes of each rerun)."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls_torch
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import bls12_field as BF
+    from consensus_specs_tpu_torch.ops import fp_rns
+    from consensus_specs_tpu_torch.profile_main_path import profile_window
+    from consensus_specs_tpu_torch.utils import bucketing
+
+    block, gossip, shim = inputs
+    b = bucketing.pow2_bucket(len(block), 8)
+    plan = bucketing.grouped_plan([c.q1 for c in gossip], 8)
+    bad_at, gat = limb["block_bad_at"], limb["gossip_bad_at"]
+    bad_block, bad_gossip = with_bad_item(block, bad_at), with_bad_item(gossip, gat)
+    with Aside():  # the limb verdicts of the one flush phase 5 does not run
+        limb_gossip_named = np.flatnonzero(~bls_torch.run_checks(bad_gossip, dev)).tolist()
+    require(limb_gossip_named == [gat], f"limb gossip attribution named {limb_gossip_named}")
+    out, by_part = {}, {}
+    B.set_field_backend("rns")
+    try:
+        # the process's first RNS flush, uncounted and timed on its own: it
+        # carries a first-use cost that the flushes after it do not
+        with Aside(), HostCosts() as first:
+            ok, out["bls_block_flush_rns_first_ms"], out["bls_block_flush_rns_first_wall_ms"] = \
+                timed(lambda: bls_torch.run_checks(block, dev))
+        require(ok.all(), "the first rns block flush failed")
+        out["block_first_host_costs"] = first.summary()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        fp_rns.OP_LAUNCHES.clear()
+
+        def flush(part, checks):
+            before, loops0 = fp_rns.OP_LAUNCHES.copy(), BF.miller_loop_items
+            ok, ms, wall = timed(lambda: bls_torch.run_checks(checks, dev))
+            by_part[part] = dict(fp_rns.OP_LAUNCHES - before)
+            out[f"{part}_miller_loops"] = BF.miller_loop_items - loops0
+            out[f"{part}_k24_launches"] = sum(by_part[part].values())
+            return ok, ms, wall
+
+        with HostCosts() as warm:
+            ok, out["bls_block_flush_rns_ms"], out["bls_block_flush_rns_wall_ms"] = flush(
+                "block", block)
+        out["block_host_costs"] = warm.summary()
+        require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc", items=b, distinct=b,
+                                                          miller_loops=b + 1)
+                and out["block_miller_loops"] == limb["block_miller_loops"] == b + 1,
+                f"rns block flush: {int(ok.sum())} ok, {bls_torch.LAST_FLUSH}, "
+                f"{out['block_miller_loops']} Miller loops")
+        ok, out["bls_attribution_rns_ms"], out["bls_attribution_rns_wall_ms"] = flush(
+            "attribution", bad_block)
+        require(np.flatnonzero(~ok).tolist() == [bad_at]
+                and out["attribution_miller_loops"] == limb["attribution_miller_loops"],
+                f"rns attribution flagged {np.flatnonzero(~ok).tolist()}, not [{bad_at}]")
+        ok, out["bls_gossip_flush_rns_ms"], out["bls_gossip_flush_rns_wall_ms"] = flush(
+            "gossip", gossip)
+        require(ok.all() and bls_torch.LAST_FLUSH == dict(path="rlc_grouped", items=plan.b_n,
+                                                          distinct=plan.b_d,
+                                                          miller_loops=plan.b_d + 1)
+                and out["gossip_miller_loops"] == limb["gossip_miller_loops"] == plan.b_d + 1,
+                f"rns gossip flush: {int(ok.sum())} ok, {bls_torch.LAST_FLUSH}")
+        ok, out["bls_gossip_attribution_rns_ms"], out["bls_gossip_attribution_rns_wall_ms"] = \
+            flush("gossip_attribution", bad_gossip)
+        named = np.flatnonzero(~ok).tolist()
+        require(named == limb_gossip_named
+                and out["gossip_attribution_miller_loops"] == plan.b_d + 1 + 2 * plan.b_n,
+                f"rns gossip attribution named {named}, limb {limb_gossip_named}")
+        before = fp_rns.OP_LAUNCHES.copy()
+        shim_out = shim_flushes(dev, shim)
+        by_part["shim"] = dict(fp_rns.OP_LAUNCHES - before)
+        out["bls_shim_flush_rns_wall_ms"] = shim_out["bls_shim_flush_wall_ms"]
+        out["shim_flush_rns"] = shim_out["shim_flush"]
+        require(shim_out["shim_flush"] == limb["shim_flush"],
+                f"rns shim flush {shim_out['shim_flush']} != limb {limb['shim_flush']}")
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        by_op = dict(fp_rns.OP_LAUNCHES)
+        require(launches["rns_ops"] > 0 and not any(launches[k] for k in BLS_KERNELS),
+                f"under rns: K24 {launches['rns_ops']} launches, K8-K12 "
+                f"{ {k: launches[k] for k in BLS_KERNELS} }")
+        clocks = {}
+        with Aside():
+            for part, checks in (("block", block), ("gossip", gossip)):
+                with RnsShapes() as shapes:
+                    wall_us, rows = profile_window(lambda: bls_torch.run_checks(checks, dev),
+                                                   torch)
+                clocks[part] = shapes
+                wall = out[f"bls_{part}_flush_rns_wall_ms"]
+                device = 1e-3 * sum(r[2] for r in rows) if rows else None
+                out[f"{part}_rns_device_ms"] = device
+                out[f"{part}_rns_busy_share"] = None if device is None else device / wall
+                out[f"{part}_rns_profiled_wall_ms"] = 1e-3 * wall_us
+                out[f"{part}_rns_commonest_mont_mul_m"] = shapes.commonest("mont_mul")
+                out[f"{part}_rns_commonest_mont_reduce_m"] = shapes.commonest("mont_reduce")
+    finally:
+        B.set_field_backend("limb")
+    print(f"rns main path: block flush of {len(block)} checks ok ({out['block_k24_launches']} "
+          f"K24 launches, {out['block_miller_loops']} Miller loops), bad signature at {bad_at} "
+          f"attributed; gossip flush of {len(gossip)} over {plan.d} messages ok "
+          f"({out['gossip_k24_launches']} K24 launches, {out['gossip_miller_loops']} Miller "
+          f"loops), its bad item {gat} named; shim flushed once, its bad call raised; verdicts, "
+          f"records and Miller counts = the limb runs'; no K8-K12 launch", flush=True)
+    return out, launches, dict(by_op=by_op, by_part=by_part), clocks
+
+
+def sass_rns_mont_mul() -> int:
+    """Instructions one thread executes in K24's mont_mul instance: its SASS
+    up to the last EXIT, NOPs left out, with the bodies of its two loops (one
+    trip a destination channel of each base extension, `#pragma unroll 1`)
+    counted 32 times. Fails unless there are exactly those two loops."""
+    import re
+
+    from consensus_specs_tpu_torch.ops import fp_rns
+
+    ops = [(a, re.sub(r"^@!?U?P[T0-9]+\s+", "", op))
+           for a, op in _sass_ops("fp_rns", "rns_ops_kernelILi5E")]
+    last = max(i for i, (_, op) in enumerate(ops) if op.startswith("EXIT"))
+    body = [(a, op) for a, op in ops[:last + 1] if not op.startswith("NOP")]
+    loops = []
+    for addr, op in body:
+        m = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < addr:
+            loops.append(sum(1 for a, _ in body if int(m.group(1), 16) <= a <= addr))
+    require(len(loops) == 2, f"K24 mont_mul: {len(loops)} loops in its SASS, expected the two "
+            "base extensions")
+    total = len(body) + (fp_rns.K_PER_BASE - 1) * sum(loops)
+    print(f"sass rns_ops mont_mul: {len(body)} instructions, loop bodies {loops} run "
+          f"{fp_rns.K_PER_BASE} times: {total} executed a thread; most used "
+          f"{_opcode_mix([op for _, op in body], 8)}")
+    return total
+
+
+# K24's least work, in lane instructions, from the arithmetic an RNS product
+# needs rather than from the kernel's SASS (whose rolled extension loops spend
+# 7-9 instructions a product on constant loads, split 64-bit adds and loop
+# control): a 32 x 32-bit product, or a 64-bit multiply-accumulate, is one
+# instruction (IMAD.WIDE.U32); a word reduced by a 15-bit prime four (Barrett:
+# a multiply-high, a multiply-subtract, a compare, a select); a sum of two
+# residues reduced three (add, subtract, select); a float32 multiply or add one.
+RNS_REDUCE, RNS_ADD_MOD = 4, 3
+
+
+def rns_least_instructions(op: str) -> int:
+    """Lane instructions one element of `op` ("mont_mul" or "mont_reduce")
+    needs by RNS_REDUCE's reckoning, each operation counted once."""
+    from consensus_specs_tpu_torch.ops import fp_rns
+
+    k = fp_rns.K_PER_BASE
+    mod_mul = 1 + RNS_REDUCE
+    # alpha: k float products and sums, the offset and the floor; the k x k
+    # multiply-accumulates; a destination channel's -alpha·M_src and reduction
+    extend = 2 * k + 2 + k * k + k * (1 + RNS_REDUCE)
+    reduce = (2 * k * mod_mul          # base A: q = t·(-p^-1), sigma = q·w^-1
+              + extend                 # A -> B
+              + k * (mod_mul + RNS_ADD_MOD + 2 * mod_mul)  # base B: q·p, + t, ·M_A^-1, ·w^-1
+              + extend)                # B -> A
+    return reduce + (2 * k * mod_mul if op == "mont_mul" else 0)  # mul_wide's 64 products
+
+
+def rns_rows(dev, launches, parts, clocks, err) -> list:
+    """K24's row: its time at the block flush's commonest mont_mul M (and at
+    the gossip flush's, and mont_reduce at each flush's commonest M) on seeded
+    residues, each equal to the plain version's output on every channel, the
+    plain version's time, and the least time: the instructions the op needs
+    (`rns_least_instructions`) x M over the lane issue rate, or 768 bytes an
+    element read and written once (a mont_reduce: 512), the larger. Beside
+    it, `sass_bound_ms`: the kernel's own executed SASS (a mont_mul's, also
+    for mont_reduce, whose instance is not counted apart) x M over the same
+    rate, the floor of the kernel as it is written."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    import torch
+
+    sass = sass_rns_mont_mul()
+    least = {name: rns_least_instructions(name) for name in ("mont_mul", "mont_reduce")}
+    print(f"rns least instructions an element: {least} (RNS_REDUCE={RNS_REDUCE}); the kernel's "
+          f"mont_mul executes {sass}", flush=True)
+    rng = np.random.default_rng(240)
+    rows = {}
+    for part in ("block", "gossip"):
+        for opname, op in (("mont_mul", R.OP_MONT_MUL), ("mont_reduce", R.OP_MONT_REDUCE)):
+            m = clocks[part].commonest(opname)
+            a, b = rns_residues(rng, m, dev), rns_residues(rng, m, dev).flip(0)
+            args = (a, b) if op == R.OP_MONT_MUL else (R.rns_ops(R.OP_MUL_WIDE, a, b),)
+            plain, plain_ms, _ = timed(lambda: R.rns_ops_plain(op, *args))
+            got = R.rns_ops(op, *args)
+            err["rns_ops"] = max(err["rns_ops"], max_abs_err(got, plain))
+            require(torch.equal(got, plain), f"K24 {opname} at M={m} differs from its plain "
+                    "version")
+            nbytes = (3 if op == R.OP_MONT_MUL else 2) * m * 256
+            t_ops, t_bytes = least[opname] * m / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+            rows[f"{part} {opname}"] = dict(
+                shape=f"{opname} M={m}", ms=time_ms(lambda: R.rns_ops(op, *args), 20),
+                plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                sass_bound_ms=1e3 * sass * m / LANE_INSTR_PER_S,
+                calls_in_flush=clocks[part].shapes[(opname, m)])
+    first = rows.pop("block mont_mul")
+    row = dict(name="rns_ops", route="cuda", source="consensus_specs_tpu_torch/csrc/fp_rns.cu",
+               replaces="consensus_specs_tpu/ops/fp_rns.py:320", launches=launches["rns_ops"],
+               max_abs_err=err["rns_ops"], bit_equal=err["rns_ops"] == 0.0, library_ms=None,
+               library_null_reason="no PyTorch call computes an RNS Montgomery product "
+               "(torch._int_mm covers only the base extensions' products)",
+               least_instructions=least, sass_mont_mul=sass, launches_by_op=parts["by_op"],
+               launches_by_part=parts["by_part"], **first, **rows)
+    row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+    for label, r in [("block mont_mul", first), *rows.items()]:
+        print(f"kernel rns_ops ({label}, {r['shape']}): ms={r['ms']:.5f} "
+              f"bound_ms={r['bound_ms']:.7f} ({r['bound_by']}) sass_bound_ms="
+              f"{r['sass_bound_ms']:.7f} plain_ms={r['plain_ms']:.3f} calls in the flush "
+              f"{r['calls_in_flush']}", flush=True)
+    print(f"kernel rns_ops: launches={row['launches']} by op {parts['by_op']}", flush=True)
+    return [row]
 
 
 def msm_main_path(dev, agg_in, kzg_in) -> tuple:
@@ -2012,6 +2416,7 @@ def main(argv=None) -> int:
     check_msm_kernels(dev, err)
     check_tree_root_kernel(dev, rng, err)
     check_multiproof_kernels(dev, np.random.default_rng(20), err)
+    check_rns_kernel(dev, err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -2082,7 +2487,7 @@ def main(argv=None) -> int:
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
         require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS
-                + DAS_KERNELS,
+                + DAS_KERNELS + RNS_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -2237,6 +2642,16 @@ def main(argv=None) -> int:
           f"device by CUDA events; pointwise and layout {stages['pointwise_and_layout_host']:.4f} "
           f"host; busy share {das_out['das_recover_busy_share']:.4f}) busy share "
           f"{das_out['das_busy_share']:.4f} launches={das_parts}", flush=True)
+
+    # 5h. phase 5's BLS flushes over the RNS field backend (K24)
+    rns_out, rns_launches, rns_parts, rns_clocks = rns_main_path(dev, bls_in, bls_out)
+    print("rns main path: " + " ".join(f"{k}={'not measured' if v is None else f'{v:.4f}'}"
+                                       for k, v in rns_out.items()
+                                       if k.endswith(("_ms", "_share")))
+          + f" first flush {rns_out['block_first_host_costs']} warm block flush "
+          f"{rns_out['block_host_costs']}"
+          + f" launches={ {k: v for k, v in rns_launches.items() if v} } K24 by op="
+          f"{rns_parts['by_op']} by part={rns_parts['by_part']}", flush=True)
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -2397,6 +2812,8 @@ def main(argv=None) -> int:
     sass_fr_mul = sass_instructions("ntt", "fr_ops_kernelILi0E")
     with Aside():
         rows += das_rows(das_inputs, das_parts, err, sass_fr_mul, bound)
+    with Aside():
+        rows += rns_rows(dev, rns_launches, rns_parts, rns_clocks, err)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -2411,7 +2828,8 @@ def main(argv=None) -> int:
         "spec_path": dict(spec_out, n=SPEC_N, slots=SPEC_SLOTS, committees=SPEC_COMMITTEES,
                           launches=spec_launches),
         "proof_path": dict(proof_out, launches=proof_launches),
-        "das_path": dict(das_out, seed=args.seed, launches=das_parts)}))
+        "das_path": dict(das_out, seed=args.seed, launches=das_parts),
+        "rns_path": dict(rns_out, launches=rns_parts)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from ..ops import bls12 as K
-from ..ops import fp
 from ..utils import bucketing
 from ..utils.device import resolve_device
 from . import bls12_381 as oracle
@@ -269,13 +268,13 @@ def random_zbits(n: int, device) -> torch.Tensor:
     return zbits_from_ints(zs, device)
 
 
-def _mont_coords(groups, device) -> list:
-    """Canonical coordinates, one flat int list per group, -> the groups as
-    Montgomery word tensors on `device`: packed on the host, converted in one
-    K8 launch."""
+def _coords(groups, device) -> tuple:
+    """Canonical coordinates, one flat int list per group, -> (the groups as
+    tensors of the selected field backend on `device`, their width)."""
+    field = K.current_field()
     sizes = [len(g) for g in groups]
-    words = torch.from_numpy(fp.ints_to_words([c for g in groups for c in g])).to(device)
-    return list(torch.split(fp.to_mont_words(words), sizes))
+    return list(torch.split(field.pack([c for g in groups for c in g], device), sizes)), \
+        field.width
 
 
 def _g1_flat(pts):
@@ -292,9 +291,9 @@ def _pack_pairing_args(p1s, q1s, p2s, q2s, device):
     pad = b - len(p1s)
     groups = (_g2_flat(list(q1s) + [_G2] * pad), _g1_flat(list(p1s) + [_G1] * pad),
               _g2_flat(list(q2s) + [_G2] * pad), _g1_flat(list(p2s) + [_NEG_G1] * pad))
-    q1, p1, q2, p2 = _mont_coords(groups, device)
-    return b, (q1.reshape(b, 2, 2, fp.NWORDS), p1.reshape(b, 2, fp.NWORDS),
-               q2.reshape(b, 2, 2, fp.NWORDS), p2.reshape(b, 2, fp.NWORDS))
+    (q1, p1, q2, p2), w = _coords(groups, device)
+    return b, (q1.reshape(b, 2, 2, w), p1.reshape(b, 2, w), q2.reshape(b, 2, 2, w),
+               p2.reshape(b, 2, w))
 
 
 def _pack_grouped_args(p1s, q1s, q2s, device):
@@ -307,10 +306,10 @@ def _pack_grouped_args(p1s, q1s, q2s, device):
     reps = [q1s[i] for i in plan.rep_index] + [_G2] * plan.pad_groups
     p1s = list(p1s) + [_G1] * plan.pad_items
     q2s = list(q2s) + [reps[g] for g in plan.pad_assignments]
-    q1, p1, q2 = _mont_coords((_g2_flat(reps), _g1_flat(p1s), _g2_flat(q2s)), device)
+    (q1, p1, q2), w = _coords((_g2_flat(reps), _g1_flat(p1s), _g2_flat(q2s)), device)
     seg_ids = torch.tensor(plan.seg, dtype=torch.int64, device=device)
-    return b_n, b_d, (q1.reshape(b_d, 2, 2, fp.NWORDS), p1.reshape(b_n, 2, fp.NWORDS),
-                      q2.reshape(b_n, 2, 2, fp.NWORDS)), seg_ids
+    return b_n, b_d, (q1.reshape(b_d, 2, 2, w), p1.reshape(b_n, 2, w),
+                      q2.reshape(b_n, 2, 2, w)), seg_ids
 
 
 # The most recent randomized flush: its path, padded item and distinct
@@ -330,7 +329,7 @@ def _device_check(p1s, q1s, p2s, q2s, device) -> np.ndarray:
     """Per item e(p1, q1)·e(p2, q2) == 1, padded to the bucket."""
     n = len(p1s)
     _, args = _pack_pairing_args(p1s, q1s, p2s, q2s, device)
-    return K.pairing_check_batch(*args).cpu().numpy()[:n]
+    return K.current_field().check_batch(*args).cpu().numpy()[:n]
 
 
 def _device_check_all(p1s, q1s, p2s, q2s, device) -> bool:
@@ -339,13 +338,14 @@ def _device_check_all(p1s, q1s, p2s, q2s, device) -> bool:
     where messages repeat, else N + 1."""
     assert all(p2 is _NEG_G1 for p2 in p2s), "the randomized check needs p2 == -G1"
     n = len(p1s)
+    check = K.current_field().check_rlc
     if len(set(q1s)) < n:
         b_n, b_d, (q1, p1, q2), seg_ids = _pack_grouped_args(p1s, q1s, q2s, device)
-        ok = K.pairing_check_rlc(q1, p1, q2, random_zbits(b_n, device), seg_ids)
+        ok = check(q1, p1, q2, random_zbits(b_n, device), seg_ids)
         record_flush("rlc_grouped", items=b_n, distinct=b_d, miller_loops=b_d + 1)
     else:
         b, (q1, p1, q2, _) = _pack_pairing_args(p1s, q1s, p2s, q2s, device)
-        ok = K.pairing_check_rlc(q1, p1, q2, random_zbits(b, device))
+        ok = check(q1, p1, q2, random_zbits(b, device))
         record_flush("rlc", items=b, distinct=b, miller_loops=b + 1)
     return bool(ok)
 

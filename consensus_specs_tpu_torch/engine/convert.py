@@ -10,9 +10,13 @@ uint32 sixteen-bit limbs, the port as (..., 12) int32 words, both the
 Montgomery value a·2^384 mod p, so the conversion is a repacking (the same
 for Fr: ops/fr_jax.py's (..., 16) limbs and ops/fr.py's (..., 8) words, R =
 2^256 in both). An Fp2 is JAX's (re, im) tuple and the port's (..., 2, 12);
-an Fp12 JAX's six Fp2 coefficients and the port's (..., 12, 12). JAX's RNS
-backend (its default) has another layout: its values cross as canonical
-ints (its own `mont_batch_to_ints`) and `fp.ints_to_mont_words`.
+an Fp12 JAX's six Fp2 coefficients and the port's (..., 12, 12).
+
+JAX's RNS backend (its default) and the port's (ops/fp_rns.py) share one
+layout, (..., 64) int32 residues of the same 64 primes with R = M_A, so
+`rns_from_jax` / `rns_to_jax` copy. Between the port's two fields,
+`rns_from_words` / `words_from_rns` go through canonical ints (an RNS value
+may stand for any integer of its class mod p, a word value is canonical).
 
 A fork-choice StoreSnapshot has the same numpy fields in both packages
 (`snapshot_from_jax`).
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from ..forkchoice.mirror import StoreSnapshot
+from ..ops import fp, fp_rns
 from ..utils.device import resolve_device
 from .state import EpochConfig, EpochState
 
@@ -95,6 +100,34 @@ def f12_from_jax(f) -> torch.Tensor:
 
 def f12_to_jax(words: torch.Tensor) -> tuple:
     return tuple(f2_to_jax(words[..., 2 * k:2 * k + 2, :]) for k in range(6))
+
+
+def rns_from_jax(residues) -> torch.Tensor:
+    """JAX's RNS Fp (..., 64) int32 residues (numpy or a JAX array) -> the
+    port's tensor (a copy, on the CPU)."""
+    return torch.from_numpy(np.array(residues, dtype=np.int32))
+
+
+def rns_to_jax(t: torch.Tensor) -> np.ndarray:
+    """The port's RNS residues -> (..., 64) int32 numpy, as JAX takes them."""
+    return np.ascontiguousarray(t.detach().cpu().numpy().astype(np.int32))
+
+
+def rns_from_words(words: torch.Tensor) -> torch.Tensor:
+    """Limb Montgomery words (..., 12) -> RNS Montgomery residues (..., 64) of
+    the same field values (through canonical ints, on the host; the result
+    on the CPU)."""
+    shape = tuple(words.shape[:-1])
+    ints = fp.mont_words_to_ints(words)
+    return torch.from_numpy(fp_rns.ints_to_mont_batch(ints)).reshape(*shape, fp_rns.NLIMBS)
+
+
+def words_from_rns(residues: torch.Tensor) -> torch.Tensor:
+    """RNS Montgomery residues (..., 64) -> canonical limb Montgomery words
+    (..., 12) of the same field values (host; the result on the CPU)."""
+    shape = tuple(residues.shape[:-1])
+    ints = fp_rns.mont_batch_to_ints(residues)
+    return torch.from_numpy(fp.ints_to_mont_words(ints)).reshape(*shape, fp.NWORDS)
 
 
 def snapshot_from_jax(snap):

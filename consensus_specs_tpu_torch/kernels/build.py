@@ -39,7 +39,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("sha256", "state_root", "epoch", "shuffle", "incremental_root", "fp", "rlc",
-           "pairing", "msm", "forkchoice", "tree_root", "multiproof", "ntt")
+           "pairing", "msm", "forkchoice", "tree_root", "multiproof", "ntt", "fp_rns")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -49,7 +49,7 @@ LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep"
                             "miller_loop": 0, "final_exp": 0, "g1_msm": 0, "g1_subgroup": 0,
                             "fc_ancestors": 0, "fc_vote_weights": 0, "fc_subtree": 0,
                             "fc_head_walk": 0, "tree_root_batch": 0, "multiproof_heap": 0,
-                            "multiproof_siblings": 0, "fr_ntt": 0, "fr_ops": 0}
+                            "multiproof_siblings": 0, "fr_ntt": 0, "fr_ops": 0, "rns_ops": 0}
 
 
 class KernelError(RuntimeError):

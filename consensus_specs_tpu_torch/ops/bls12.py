@@ -49,8 +49,18 @@ The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
 segment.
 Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
 CPU tensors.
+
+The field of the BLS flush (JAX's switch, :55-64): `set_field_backend("limb")`
+(the default) runs the randomized check and the per-item check on K9-K12
+over this module's field; `set_field_backend("rns")` runs them through
+ops/bls12_field.py over the RNS field (ops/fp_rns.py, kernel K24), and
+crypto/bls_torch.py packs RNS residues for it. Neither backend runs the
+other's kernels. The key aggregation, the subgroup check and the MSM run on
+K10, K13 and K14 under either.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -58,7 +68,7 @@ import torch
 from ..crypto import bls12_381 as oracle
 from ..kernels import build
 from ..utils.device import is_cpu, resolve_device
-from . import fp
+from . import bls12_field, fp, fp_rns
 from .fp import (
     NLIMBS,
     NWORDS,
@@ -85,6 +95,35 @@ GAMMA2 = [oracle.f2_mul(oracle.f2_conj(g), g) for g in GAMMA1]
 NEG_G1 = (oracle.G1_GEN_AFF[0], (-oracle.G1_GEN_AFF[1]) % P)
 
 miller_loop_items = 0  # Miller loops run through `miller_loop`, kernel or plain
+
+class FieldBackend(NamedTuple):
+    """One field of the BLS flush, over this module's packed layout (Q
+    (B, 2, 2, width), P (B, 2, width), scalars (B, 2) int32 words)."""
+    width: int        # int32 words an Fp element
+    pack: Callable    # (canonical ints, device) -> (n, width) Montgomery form
+    check_batch: Callable  # (q1, p1, q2, p2) -> (B,) bool, e(P1, Q1)·e(P2, Q2) == 1
+    check_rlc: Callable    # (q1, p1, q2, zbits, seg_ids=None) -> 0-d bool, P2 = -G1
+
+
+_FIELD = "limb"
+
+
+def set_field_backend(name: str) -> None:
+    """Select the BLS flush's field: "limb" (K9-K12) or "rns" (K24 under
+    ops/bls12_field.py). An unknown name raises KeyError."""
+    global _FIELD
+    if name not in FIELD_BACKENDS:
+        raise KeyError(f"unknown field backend {name!r}; one of {sorted(FIELD_BACKENDS)}")
+    _FIELD = name
+
+
+def field_backend() -> str:
+    return _FIELD
+
+
+def current_field() -> FieldBackend:
+    """The selected backend's packing and checks."""
+    return FIELD_BACKENDS[_FIELD]
 
 
 # --- host codecs (canonical ints <-> Montgomery words) --------------------------
@@ -864,6 +903,19 @@ def pairing_check_rlc(q1, p1, q2, zbits, seg_ids=None):
     m = miller_loop(torch.cat([q1, aq]), torch.cat([a1, neg_g1_words(a1.device)[None]]))
     ok = rlc_tail(m[:-1], m[-1])
     return ok if members is None else ok & members
+
+
+def pack_mont(ints, device) -> torch.Tensor:
+    """Canonical ints -> (n, 12) Montgomery words on `device`: packed on the
+    host, converted in one K8 launch."""
+    return fp.to_mont_words(torch.from_numpy(fp.ints_to_words(list(ints))).to(device))
+
+
+FIELD_BACKENDS = {
+    "limb": FieldBackend(NWORDS, pack_mont, pairing_check_batch, pairing_check_rlc),
+    "rns": FieldBackend(fp_rns.NLIMBS, bls12_field.pack_mont, bls12_field.check_batch_packed,
+                        bls12_field.check_rlc_packed),
+}
 
 
 # --- the MSM, the committee-key sum and the subgroup check (:1254-1494) -----------

@@ -10,7 +10,12 @@ epoch followed by the `device_roots()` refresh of the cache, one
 sync-committee sample (the rotation's work) on the current columns, and
 the BLS flushes of one block (131 checks) and of one slot's gossip
 aggregates (1024 checks), from `crypto/bls_synthetic.flush_inputs(0)`
-after one warm-up flush each, the block's cold committee-key aggregation
+after one warm-up flush each, the same two flushes over the RNS field
+backend (ops/bls12_field over K24; the block flush's warm-up is the
+process's first RNS flush, and it and a second one run under cProfile to
+show what the first use costs; their K24 launches by op code are printed
+from one counted flush each, and the block flush runs under cProfile
+too), the block's cold committee-key aggregation
 (129 FastAggregateVerify calls over 66,048 keys, key caches cleared,
 signatures decompressed before), the KZG sample batch at 128 blobs
 (`crypto/msm_synthetic`, seed 0) and the fork-choice head at V = N
@@ -44,22 +49,55 @@ import time
 import numpy as np
 
 
-def _profile(fn, torch):
+def profile_window(fn, torch):
+    """fn() under torch.profiler, recording the device side only (host ops
+    would slow the host and are not read): (host wall us, [(key, count,
+    device us)] of the device-side records, most device time first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    # device-side records only (kernels, memsets, copies): host ops also
-    # carry the device time of the kernels they launched
+    # kernels, memsets and copies
     rows = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     return wall_us, rows
+
+
+def _first_use(label, fn, torch) -> None:
+    """fn() twice under cProfile, the first time being its first in the
+    process: both host walls, the caching allocator's cudaMalloc calls of
+    each, and the host functions whose own time grew most on the first."""
+    import cProfile
+    import pstats
+
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        mallocs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        prof = cProfile.Profile()
+        t0 = time.perf_counter()
+        prof.enable()
+        fn()
+        torch.cuda.synchronize()
+        prof.disable()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        mallocs = torch.cuda.memory_stats().get("segment.all.allocated", 0) - mallocs
+        own = {k: (v[1], v[2]) for k, v in pstats.Stats(prof).stats.items()}
+        runs.append((wall_ms, mallocs, own))
+    (w1, m1, own1), (w2, m2, own2) = runs
+    print(f"first use, {label} under cProfile: first {w1:.1f} ms ({m1} cudaMalloc calls), "
+          f"second {w2:.1f} ms ({m2}); own time grown most on the first:")
+    grown = sorted(((t - own2.get(k, (0, 0.0))[1], n, own2.get(k, (0, 0.0))[0], k)
+                    for k, (n, t) in own1.items()), reverse=True)
+    for dt, n1, n2, (path, line, name) in grown[:12]:
+        print(f"    {1e3 * dt:10.1f} ms  calls {n1} / {n2}  {path.rsplit('/', 2)[-1]}:{line}"
+              f"({name})")
 
 
 def _print_window(label, wall_us, rows) -> None:
@@ -94,6 +132,7 @@ def main(argv=None) -> int:
     from .engine.synthetic import synthetic_epoch_state
     from .forkchoice import synthetic as fc_synthetic
     from .kernels import build
+    from .ops import bls12, fp_rns
 
     build.build_all()
     dev = torch.device("cuda")
@@ -135,6 +174,19 @@ def main(argv=None) -> int:
     block_flush()
     gossip_flush()
 
+    def rns(fn):
+        """fn under the "rns" field backend (ops/bls12_field over K24)."""
+        def run():
+            bls12.set_field_backend("rns")
+            try:
+                fn()
+            finally:
+                bls12.set_field_backend("limb")
+        return run
+
+    _first_use("the BLS block flush over the RNS field", rns(block_flush), torch)
+    rns(gossip_flush)()
+
     agg_in = msm_synthetic.block_aggregate_inputs(0)
     kzg_in = msm_synthetic.kzg_inputs(0)
     for _, _, sig in agg_in["calls"]:
@@ -170,12 +222,26 @@ def main(argv=None) -> int:
                       ("sync-committee sample", rotation),
                       (f"BLS block flush ({len(block)} checks)", block_flush),
                       (f"BLS gossip flush ({len(gossip)} checks)", gossip_flush),
+                      (f"BLS block flush over the RNS field ({len(block)} checks)",
+                       rns(block_flush)),
+                      (f"BLS gossip flush over the RNS field ({len(gossip)} checks)",
+                       rns(gossip_flush)),
                       (f"cold key aggregation ({len(agg_in['calls'])} calls)", cold_aggregation),
                       (f"KZG sample batch ({len(kzg_in['samples'])} blobs)", kzg_samples),
                       ("fork-choice head (512 blocks)", fc_heads(fc_head)),
                       ("fork-choice batch of 8 (512 blocks)", fc_heads(fc_batch)),
                       ("fork-choice head (8192 blocks)", fc_heads(fc_long))):
-        _print_window(label, *_profile(fn, torch))
+        _print_window(label, *profile_window(fn, torch))
+
+    for label, fn in (("block", block_flush), ("gossip", gossip_flush)):
+        torch.cuda.synchronize()
+        build.reset_launches()
+        fp_rns.OP_LAUNCHES.clear()
+        rns(fn)()
+        torch.cuda.synchronize()
+        print(f"K24 launches in one {label} flush over the RNS field: "
+              f"{build.LAUNCHES['rns_ops']} by op {dict(fp_rns.OP_LAUNCHES)}; other kernels "
+              f"{ {k: v for k, v in build.LAUNCHES.items() if v and k != 'rns_ops'} }")
 
     import cProfile
     import io
@@ -183,6 +249,7 @@ def main(argv=None) -> int:
 
     for label, fn in ((f"{args.epochs} resident epochs", epochs),
                       ("the BLS gossip flush", gossip_flush),
+                      ("the BLS block flush over the RNS field", rns(block_flush)),
                       ("the cold key aggregation", cold_aggregation),
                       ("the KZG sample batch", kzg_samples),
                       ("the fork-choice batch of 8", fc_heads(fc_batch))):
@@ -224,9 +291,9 @@ def _profile_das_lane(dev, torch):
             raise RuntimeError("the reconstruction differs from the extension")
 
     print(f"das lane: {len(data)} blobs of {blobs.blob_points(spec)} points")
-    _print_window(f"das extend_data ({len(data) - 1} blobs)", *_profile(extend_slot, torch))
+    _print_window(f"das extend_data ({len(data) - 1} blobs)", *profile_window(extend_slot, torch))
     _print_window("das reconstruct_extended_data (256 of 4,096 samples withheld)",
-                  *_profile(reconstruct, torch))
+                  *profile_window(reconstruct, torch))
     _host_profile("8 das extensions", lambda: [spec.extend_data(b) for b in data[:8]], torch)
 
 
@@ -253,7 +320,7 @@ def _profile_read_lane(loop, dev, torch):
 
     dropped = invalidate()
     _print_window(f"read lane: one warm flush ({lane.FLUSH} queries, {dropped} branches "
-                  "invalidated by the epoch before)", *_profile(warm_flush, torch))
+                  "invalidated by the epoch before)", *profile_window(warm_flush, torch))
     invalidate()
     _host_profile(f"one warm read-lane flush ({lane.FLUSH} queries)", warm_flush, torch)
 
@@ -312,7 +379,7 @@ def _profile_spec_path(n, dev, torch):
         propose(8193)
         for label, slot in (("the importer's block 8192 (epoch 256)", 8192),
                             ("the importer's block 8193", 8193)):
-            _print_window(label, *_profile(lambda: apply(slot), torch))
+            _print_window(label, *profile_window(lambda: apply(slot), torch))
 
 
 if __name__ == "__main__":

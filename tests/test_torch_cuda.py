@@ -789,3 +789,135 @@ def test_das_on_card_matches_cpu(cuda):
                  for i in range(len(published) // pps)]
     partial = [sg if i % 3 else None for i, sg in enumerate(subgroups)]
     assert spec.recover_data(partial) == published
+
+
+# --- K24 rns_ops: the RNS field ---------------------------------------------------------
+
+
+def _rns_residues(values, dev):
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    mab = R.M_A * R.M_B
+    return torch.from_numpy(np.stack([R._residues(v % mab, R._PRIMES) for v in values])).to(dev)
+
+
+def _rns_operands(m, seed, dev):
+    """m seeded Montgomery values with the field's edges first (0, 1, p, 2p,
+    -1, -p, R mod p, 3p - 1), and a second operand."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    rng = np.random.default_rng(seed)
+    vals = [int.from_bytes(rng.bytes(48), "little") % R.P * R.M_A % R.P for _ in range(2 * m)]
+    edges = [0, 1, R.P, 2 * R.P, -1, -R.P, R.R_MOD_P, 3 * R.P - 1]
+    vals[:min(m, 8)] = edges[:m]
+    return _rns_residues(vals[:m], dev), _rns_residues(vals[m:], dev)
+
+
+@pytest.mark.parametrize("op", range(11))
+@pytest.mark.parametrize("m", [1, 130])
+def test_rns_ops_kernel_matches_plain(cuda, op, m):
+    """Every op code of K24 bit-equal, channel for channel, to its plain
+    version on the same CUDA tensors; one counted launch."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    a, b = _rns_operands(m, op + m, cuda)
+    if op == R.OP_SUM_STACK:
+        args = (torch.stack([a, b, a, b, a, b, a, b]),)
+    elif op in R._BINARY:
+        args = (a, b)
+    elif op == R.OP_MONT_REDUCE:
+        args = (R.rns_ops_plain(R.OP_MUL_WIDE, a, b),)
+    else:
+        args = (a,)
+    by_op = R.OP_LAUNCHES[R.OP_NAMES[op]]
+    with _counted("rns_ops"):
+        got = R.rns_ops(op, *args)
+    assert R.OP_LAUNCHES[R.OP_NAMES[op]] == by_op + 1
+    assert torch.equal(got, R.rns_ops_plain(op, *args))
+
+
+def test_rns_mont_reduce_at_the_alpha_boundary(cuda):
+    """Inputs whose q = -t·p^-1 mod M_A lies next to M_A/4, where the first
+    extension's float32 alpha decides a floor: K24 equals its plain version
+    (both sum alpha in channel order) and Python's value mod p."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    qs = [R.M_A // 4 + k for k in range(-60, 61)]
+    t = _rns_residues([(-q * R.P) % R.M_A for q in qs], cuda)
+    got = R.rns_ops(R.OP_MONT_REDUCE, t)
+    assert torch.equal(got, R.rns_ops_plain(R.OP_MONT_REDUCE, t))
+    ints = [R.from_mont_int(r) for r in t.cpu().numpy()]
+    assert R.mont_batch_to_ints(got) == [x * pow(R.M_A, -1, R.P) % R.P for x in ints]
+
+
+def test_rns_ops_wrapper_on_the_card(cuda):
+    """M = 0 launches nothing; strided and broadcast inputs are made
+    contiguous; a CPU operand beside a CUDA one raises."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    a, b = _rns_operands(8, 3, cuda)
+    before = build.LAUNCHES["rns_ops"]
+    assert R.rns_ops(R.OP_MONT_MUL, a[:0], b[:0]).shape == (0, 64)
+    assert build.LAUNCHES["rns_ops"] == before
+    got = R.fp_mont_mul(a[::2], b[0])
+    assert torch.equal(got, R.rns_ops_plain(R.OP_MONT_MUL, a[::2].contiguous(),
+                                            b[0].expand(4, 64).contiguous()))
+    with pytest.raises(ValueError):
+        R.rns_ops(R.OP_ADD, a, b.cpu())
+
+
+def test_rns_towers_on_card_equal_cpu(cuda):
+    """ops/bls12_field on the card (every field op a K24 launch) gives the
+    same residues as on the CPU: a Miller loop and a final exponentiation."""
+    from consensus_specs_tpu_torch.ops import bls12_field as BF
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    p, q, _ = _bls_items(2, 2, 21)
+    pts = tbls.affine_from_words(p, False)
+    hs = tbls.affine_from_words(q, True)
+
+    def enc(vals):
+        return torch.from_numpy(R.ints_to_mont_batch(vals))
+
+    args = ((enc([h[0][0] for h in hs]), enc([h[0][1] for h in hs])),
+            (enc([h[1][0] for h in hs]), enc([h[1][1] for h in hs])),
+            enc([a[0] for a in pts]), enc([a[1] for a in pts]))
+
+    def to(x, dev):
+        return tuple(to(c, dev) for c in x) if isinstance(x, tuple) else x.to(dev)
+
+    before = build.LAUNCHES["rns_ops"]
+    on_card = BF.pairing_cube_batch(*to(args, cuda))
+    assert build.LAUNCHES["rns_ops"] > before
+    on_cpu = BF.pairing_cube_batch(*args)
+    for c_card, c_cpu in zip(on_card, on_cpu):
+        assert torch.equal(c_card[0].cpu(), c_cpu[0]) and torch.equal(c_card[1].cpu(), c_cpu[1])
+
+
+def test_rns_flush_on_card_matches_limb(cuda):
+    """The flush under the "rns" field backend on the card: the randomized
+    check over 20 checks passes and records as the limb path, one bad
+    signature is attributed to its index as on the limb path; K24 runs and
+    no K8-K12 launch."""
+    p, q, s = _bls_items(20, 20, 22)
+    pts = tbls.affine_from_words(p, False)
+    hs = tbls.affine_from_words(q, True)
+    sigs = tbls.affine_from_words(s, True)
+    checks = [bls_torch.QueuedCheck(a, h, bls_torch._NEG_G1, g) for a, h, g in zip(pts, hs, sigs)]
+    bad = list(checks)
+    bad[13] = bls_torch.QueuedCheck(pts[13], hs[13], bls_torch._NEG_G1, sigs[12])
+    limb = (bls_torch.run_checks(checks, cuda), dict(bls_torch.LAST_FLUSH),
+            bls_torch.run_checks(bad, cuda))
+    tbls.set_field_backend("rns")
+    try:
+        build.reset_launches()
+        got = (bls_torch.run_checks(checks, cuda), dict(bls_torch.LAST_FLUSH),
+               bls_torch.run_checks(bad, cuda))
+        torch.cuda.synchronize()
+    finally:
+        tbls.set_field_backend("limb")
+    assert got[0].all() and limb[0].all() and got[1] == limb[1]
+    assert np.flatnonzero(~got[2]).tolist() == np.flatnonzero(~limb[2]).tolist() == [13]
+    assert build.LAUNCHES["rns_ops"] > 0
+    assert not any(build.LAUNCHES[k] for k in ("fp_ops", "rlc_ladders", "point_sums",
+                                                "miller_loop", "final_exp"))
