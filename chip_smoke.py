@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch + CUDA port of the epoch, BLS, key-aggregation, KZG,
-fork-choice, spec state-transition, light-client read and DAS paths, and
-the BLS flush over the RNS field, on one NVIDIA card.
+fork-choice, spec state-transition, light-client read and DAS paths, the
+BLS flush over the RNS field, and the multi-device path, on one NVIDIA
+card.
 
     python3 chip_smoke.py [--seed S]
 
@@ -33,7 +34,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K24 rns_ops at all 11 op codes on 300 seeded residue vectors with the
    field's edges (0, 1, p, 2p, -1, -p, R, 3p - 1), sum_stack over 1, 3 and 8
    rows, mont_reduce also on wide products and on 127 inputs whose q lies
-   next to M_A/4 (the float32 alpha's boundary);
+   next to M_A/4 (the float32 alpha's boundary); K25 f12_product over the 8
+   Miller values of the K8-K12 check, and K3's epoch_combine over 4 ranks'
+   vectors at its three stages;
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -156,6 +159,28 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    torch.profiler, the kernels' device time, the busy share (that time over
    the counted flush's host wall) and the commonest mont_mul and
    mont_reduce shapes;
+5i. the multi-device path (`mesh_main_path`: consensus_specs_tpu_torch/
+   parallel driven by `testlib/mesh_workers.mesh_path`): every kernel is
+   built before any rank starts; (a) world size 1 on NCCL in this process
+   (`init_process_group("nccl", store=HashStore())`), (b) 4 gloo ranks
+   spawned on this one card (`testlib/ranks.run_ranks`), (c) the (2, 2)
+   `global_epoch_mesh` over those ranks. Each runs `g1_mesh_sum` over 2**20
+   keys [k_i]·G1 made on the card by K9 from seeded 64-bit k_i, the
+   ungrouped (`pairing_check_rlc_mesh`, P2 = -G1) and grouped
+   (`pairing_check_rlc_grouped_mesh`, 64 messages) checks of phase 5's 1,024
+   gossip checks, valid and with phase 5's bad item, three sharded epochs
+   over phase 4's registry at N = 2**20 (the first timed apart: it pays the
+   gathers' first buffers), one over the ejections-and-queue edge
+   state at N = 2**16, and (c) one epoch on the (2, 2) mesh; launch counts
+   zeroed before and read after each part (K9-K12 and K25 in every check,
+   K3 once and epoch_combine three times an epoch). Every sum equals the
+   single-device K10 sum and the oracle's [sum k_i mod r]·G1, every verdict
+   the single-device `pairing_check_rlc`'s, every state K3's (sha256 digests
+   of the gathered state), on every rank. It prints `mesh_g1_sum_ms`,
+   `mesh_rlc_ms`, `mesh_rlc_grouped_ms` and `mesh_epoch_ms` for each world
+   size (CUDA events around each part, the host wall of its gathers apart);
+   the four ranks share the card's SMs, so their numbers say nothing about
+   scaling;
 6. time each kernel beside its plain version at the main path's shapes,
    and give its least time: operations from the instructions counted in
    its SASS (for K8-K12: the plain version's Fp products on the same
@@ -183,7 +208,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    bytes read and written once; K24's mont_mul and mont_reduce at the block
    and gossip flushes' commonest M, bit-equal to the plain version there,
    their least time from the instructions one mont_mul executes (its SASS,
-   the extensions' loop bodies 32 times) x M.
+   the extensions' loop bodies 32 times) x M; K25 at the B phase 5i gave it
+   (1,024 and 256: a rank's shard of the ungrouped check at world 1 and 4;
+   64 and 16: its groups) on the flush's Miller values, bit-equal to its
+   plain version there, its least time the plain version's Fp products
+   times K8's product instructions; epoch_combine at 1 and 4 ranks, its
+   least time the vectors' bytes.
 
 The last three lines are the card, one JSON object with a row per kernel,
 and the result line {"ok": true, "device": {...}}.
@@ -242,6 +272,13 @@ RNS_KERNELS = ("rns_ops",)
 DAS_PRESET = "mainnet"   # 64 blobs of 16,384 points a slot
 DAS_WITHHELD = 256       # samples withheld from the reconstructed blob (of 4,096)
 DAS_SAMPLE_POINTS = 16   # the sampling part's blob: 32 points extended, 4 samples
+MESH_KERNELS = ("f12_product", "epoch_combine")
+MESH_WORLD = 4           # phase 5i's gloo ranks, all on the one card
+MESH_KEYS = 1 << 20      # g1_mesh_sum's keys
+MESH_SEED = 10           # the keys' and the mesh flushes' scalars
+MESH_EPOCHS = 3          # sharded epochs over phase 4's registry: a first, two timed
+MESH_EDGE_N = 1 << 16    # the sharded edge state (ejections and a queue, both past churn)
+MESH_F12_SHAPES = (1024, 256, 64, 16)  # K25's B: a rank's shard at world 1 and 4
 
 
 class SmokeFailure(RuntimeError):
@@ -441,13 +478,17 @@ def check_bls_kernels(dev, err: dict) -> None:
         err["final_exp"] = max(err["final_exp"], max_abs_err(got[0], plain[0]))
         require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
                 "K12 final_exp differs from its plain version")
+    got, plain = B.f12_product(m), B.f12_product_plain(m)
+    err["f12_product"] = max_abs_err(got, plain)
+    require(torch.equal(got, plain), "K25 f12_product differs from its plain version")
     cube = B.f12_from_words(B.pairing_cube_batch(q[:2], pks[:2]))
     for i, c in enumerate(cube):
         e = oracle.pairing(hs[i], B.affine_from_words(pks[i:i + 1], False)[0])
         require(c == oracle.f12_mul(oracle.f12_sqr(e), e), "pairing cube != oracle")
-    print(f"check K8-K12: {n} items bit-equal to the plain versions (K8 all 7 ops with 0, 1, "
-          f"p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty segment; K12 "
-          f"batch, batch with m2, tail); 2 pairing cubes = oracle", flush=True)
+    print(f"check K8-K12, K25: {n} items bit-equal to the plain versions (K8 all 7 ops with 0, "
+          f"1, p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty segment; K12 "
+          f"batch, batch with m2, tail; K25 over the 8 Miller values); 2 pairing cubes = oracle",
+          flush=True)
 
 
 def check_msm_kernels(dev, err: dict) -> None:
@@ -2227,6 +2268,222 @@ def das_rows(inputs, parts, err, sass_fr_mul, bound) -> list:
     return rows
 
 
+def mesh_inputs(bls_in) -> dict:
+    """Phase 5's slot of 1,024 gossip checks packed on the host as the mesh
+    collectives take them, valid and with phase 5's bad item: ungrouped (an
+    H(m) an item, P2 = -G1) and grouped (64 messages); seeded scalars, the
+    same on every rank."""
+    from consensus_specs_tpu_torch.crypto import bls_torch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    require(B.field_backend() == "limb", "the mesh path packs limb words")
+    _, gossip, _ = bls_in
+    zs = np.random.default_rng(MESH_SEED).integers(1, 2**64, len(gossip), dtype=np.uint64)
+    out = {"ungrouped": {}, "grouped": {}}
+    for name, checks in (("valid", gossip), ("bad", with_bad_item(gossip, len(gossip) // 2))):
+        p1s, q1s, p2s, q2s = ([getattr(c, k) for c in checks] for k in ("p1", "q1", "p2", "q2"))
+        b, (q1, p1, q2, p2) = bls_torch._pack_pairing_args(p1s, q1s, p2s, q2s, "cpu")
+        b_n, b_d, (gq1, gp1, gq2), seg = bls_torch._pack_grouped_args(p1s, q1s, q2s, "cpu")
+        require(b == b_n == len(checks) and b_d == len(set(q1s)),
+                f"gossip packs to {b}, {b_n}, {b_d}")
+        zb = bls_torch.zbits_from_ints(zs)
+        out["ungrouped"][name] = (q1, p1, q2, p2, zb)
+        out["grouped"][name] = (gq1, gp1, gq2, zb, seg)
+    return out
+
+
+def mesh_main_path(dev, bls_in, cfg) -> tuple:
+    """Phase 5i: the multi-device path (consensus_specs_tpu_torch/parallel,
+    driven by testlib/mesh_workers.mesh_path), (a) at world size 1 on NCCL in
+    this process and (b) on MESH_WORLD gloo ranks sharing this card, (c) the
+    (2, 2) mesh over those ranks: every sum, verdict and state against the
+    single-device path's on the same inputs (uncounted)."""
+    import torch
+    import torch.distributed as dist
+
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.engine import epoch as tepoch
+    from consensus_specs_tpu_torch.engine.convert import epoch_state_from_numpy
+    from consensus_specs_tpu_torch.engine.resident import step_body
+    from consensus_specs_tpu_torch.engine.synthetic import (
+        edge_epoch_state_numpy,
+        synthetic_epoch_state,
+    )
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.parallel import collectives as C
+    from consensus_specs_tpu_torch.testlib import mesh_workers as MW
+    from consensus_specs_tpu_torch.testlib.ranks import run_ranks
+
+    t_phase = time.perf_counter()
+    inputs = mesh_inputs(bls_in)
+    edge = edge_epoch_state_numpy(cfg, "ejections_and_queue", MESH_EDGE_N, 0)
+    ref = {"verdicts": {}, "digests": {}}
+    with Aside():  # the single-device path on the same inputs
+        pts, k_sum = MW.mesh_keys(MESH_KEYS, MESH_SEED, dev)
+        whole = torch.tensor([0, MESH_KEYS], device=dev)
+        ref["g1_sum"] = B.affine_from_words(B.point_sums(pts, whole), False)[0]
+        want = oracle.pt_to_affine(oracle.FP_FIELD, oracle.pt_mul(oracle.FP_FIELD,
+                                                                 oracle.G1_GEN, k_sum))
+        require(ref["g1_sum"] == want, "the single-device key sum differs from the oracle's")
+        del pts
+        for name, args in inputs["ungrouped"].items():
+            q1, p1, q2, _, zb = (t.to(dev) for t in args)
+            ref["verdicts"][f"ungrouped_{name}"] = bool(B.pairing_check_rlc(q1, p1, q2, zb))
+        for name, args in inputs["grouped"].items():
+            ref["verdicts"][f"grouped_{name}"] = bool(B.pairing_check_rlc(
+                *(t.to(dev) for t in args)))
+        require(ref["verdicts"] == {"ungrouped_valid": True, "ungrouped_bad": False,
+                                    "grouped_valid": True, "grouped_bad": False},
+                f"single-device verdicts {ref['verdicts']}")
+        st = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
+        step = step_body(cfg)
+        for k in range(MESH_EPOCHS):
+            step(st)
+            if k == 0:
+                ref["digests"]["epoch1_balances"] = MW.state_digest(st, ("balances",))
+        ref["digests"]["epochs"] = MW.state_digest(st)
+        del st
+        est = epoch_state_from_numpy(edge, dev)
+        ref["edge_aux"] = tepoch.make_epoch_fn(cfg)(est)[1].flat().cpu().numpy()
+        ref["digests"]["edge"] = MW.state_digest(est)
+        torch.cuda.synchronize()
+    args = (cfg, inputs, MESH_KEYS, MESH_SEED, N_MAIN, MESH_EPOCHS, edge)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        one = MW.mesh_path(0, 1, "cuda", *args, False)
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    four = run_ranks(MW.mesh_path, MESH_WORLD, "gloo", "cuda", *args, True)
+    t2 = time.perf_counter()
+    for r in [one] + four:
+        who = f"world {r['world']} rank {r['rank']}"
+        require(r["k_sum"] == k_sum and r["g1_sum"] == ref["g1_sum"],
+                f"{who}: g1_mesh_sum differs from the single-device sum")
+        require(r["verdicts"] == ref["verdicts"], f"{who}: verdicts {r['verdicts']}")
+        for key in ("epoch1_balances", "epochs", "edge"):
+            require(r["digests"][key] == ref["digests"][key],
+                    f"{who}: the sharded {key} state differs from K3's")
+        require(np.array_equal(r["edge_aux"], ref["edge_aux"]), f"{who}: edge aux differs")
+        parts = r["parts"]
+        for name in ("ungrouped_valid", "ungrouped_bad", "grouped_valid", "grouped_bad"):
+            for k in ("rlc_ladders", "point_sums", "miller_loop", "final_exp", "f12_product"):
+                require(parts[name]["launches"].get(k, 0) > 0, f"{who}: {name} never launched {k}")
+        k10 = 3 if MESH_KEYS // r["world"] > C.SEGMENT else 2  # segments, block, partials
+        require(parts["g1_sum"]["launches"].get("point_sums", 0) == k10,
+                f"{who}: g1_mesh_sum launched K10 {parts['g1_sum']['launches']}")
+        for name in [f"epoch{k + 1}" for k in range(MESH_EPOCHS)] + ["edge"]:
+            require(parts[name]["launches"].get("epoch_sweep", 0) == 1
+                    and parts[name]["launches"].get("epoch_combine", 0) == 3,
+                    f"{who}: {name} launched {parts[name]['launches']}")
+    for r in four:
+        require(r["digests"]["hierarchical_balances"] == ref["digests"]["epoch1_balances"],
+                f"rank {r['rank']}: the (2, 2) mesh's balances differ from the flat mesh's")
+        require(r["coordinate"] == (r["rank"] // 2, r["rank"] % 2), "(2, 2) coordinates")
+        require(r["parts"]["hierarchical"]["launches"].get("epoch_combine", 0) == 3,
+                "the (2, 2) step must combine three times")
+
+    def clocks(r):
+        p = r["parts"]
+        return dict(mesh_g1_sum_ms=p["g1_sum"]["ms"], mesh_rlc_ms=p["ungrouped_valid"]["ms"],
+                    mesh_rlc_grouped_ms=p["grouped_valid"]["ms"],
+                    mesh_epoch_ms=sum(p[f"epoch{k + 1}"]["ms"]
+                                      for k in range(1, MESH_EPOCHS)) / (MESH_EPOCHS - 1),
+                    mesh_epoch_first_ms=p["epoch1"]["ms"],
+                    gather_wall_ms={k: v["gather_wall_ms"] for k, v in p.items()},
+                    wall_ms={k: v["wall_ms"] for k, v in p.items()},
+                    launches={k: v["launches"] for k, v in p.items()})
+
+    out = dict(world1=clocks(one), world4=[clocks(r) for r in four],
+               world1_setup_s=t1 - t0, world4_spawn_s=t2 - t1, phase_s=time.perf_counter() - t_phase,
+               keys=MESH_KEYS, checks=len(bls_in[1]), groups=inputs["grouped"]["valid"][0].shape[0],
+               n=N_MAIN, edge_n=MESH_EDGE_N)
+    launches = {k: sum(r["parts"][p]["launches"].get(k, 0) for r in [one] + four
+                       for p in r["parts"]) for k in ("f12_product", "epoch_combine")}
+    w1 = out["world1"]
+    print(f"mesh path (a) world 1, NCCL: mesh_g1_sum_ms={w1['mesh_g1_sum_ms']:.4f} "
+          f"mesh_rlc_ms={w1['mesh_rlc_ms']:.4f} mesh_rlc_grouped_ms="
+          f"{w1['mesh_rlc_grouped_ms']:.4f} mesh_epoch_ms={w1['mesh_epoch_ms']:.4f} (the first "
+          f"{w1['mesh_epoch_first_ms']:.4f}; CUDA events around each part; host wall of its "
+          f"gathers {w1['gather_wall_ms']}) launches="
+          f"{w1['launches']}", flush=True)
+    for r, c in zip(four, out["world4"]):
+        print(f"mesh path (b) world {MESH_WORLD} rank {r['rank']}, gloo on one card (the ranks "
+              f"share its SMs: these say nothing about scaling): mesh_g1_sum_ms="
+              f"{c['mesh_g1_sum_ms']:.4f} mesh_rlc_ms={c['mesh_rlc_ms']:.4f} mesh_rlc_grouped_ms="
+              f"{c['mesh_rlc_grouped_ms']:.4f} mesh_epoch_ms={c['mesh_epoch_ms']:.4f} (the first "
+              f"{c['mesh_epoch_first_ms']:.4f}; host wall of gathers {c['gather_wall_ms']}); (c) "
+              f"(2, 2) epoch "
+              f"{r['parts']['hierarchical']['ms']:.4f} ms", flush=True)
+    print(f"mesh path check: {MESH_KEYS} keys' sum = single-device K10 = oracle at world 1 and "
+          f"{MESH_WORLD}; {out['checks']}-check ungrouped and {out['groups']}-group grouped "
+          f"verdicts (valid, bad) = "
+          f"single-device; {MESH_EPOCHS} sharded epochs at N={N_MAIN}, the edge state at "
+          f"N={MESH_EDGE_N} and the (2, 2) epoch = K3; phase {out['phase_s']:.1f} s (world 1 "
+          f"{out['world1_setup_s']:.1f} s, world {MESH_WORLD} spawn and run "
+          f"{out['world4_spawn_s']:.1f} s)", flush=True)
+    return out, launches, inputs
+
+
+def mesh_rows(dev, inputs, launches, err, sass_mul, bound) -> list:
+    """K25 at the shapes phase 5i gave it (a rank's shard of the 1,024
+    checks at world 1 and 4, a rank's 64 and 16 groups) on the flush's own
+    Miller values, bit-equal to its plain version there, beside that
+    version's time and Fp products (the least time: those products times K8's
+    product instructions, or the bytes); epoch_combine at 1 and 4 ranks."""
+    import torch
+
+    from consensus_specs_tpu_torch.engine import epoch as tepoch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp
+
+    q1, p1, q2, _, zb = (t.to(dev) for t in inputs["ungrouped"]["valid"])
+    m = B.miller_loop(q1, B.rlc_randomize_g1(p1, zb))
+    shapes = {}
+    for b in MESH_F12_SHAPES:
+        mb = m[:b].contiguous()
+        muls0 = fp.plain_muls
+        plain, plain_ms, _ = timed(lambda: B.f12_product_plain(mb))
+        muls = fp.plain_muls - muls0
+        got = B.f12_product(mb)
+        err["f12_product"] = max(err["f12_product"], max_abs_err(got, plain))
+        require(torch.equal(got, plain), f"K25 f12_product (B={b}) differs from its plain version")
+        bd = bound(muls * sass_mul, 2 * mb.numel() * 4 + 144 * 4)
+        shapes[b] = dict(shape=f"B={b}", ms=time_ms(lambda: B.f12_product(mb), 10),
+                         plain_ms=plain_ms, fp_muls=muls, **bd)
+    first, *more = shapes.values()
+    rows = [dict(name="f12_product", route="cuda", source="consensus_specs_tpu_torch/csrc/pairing.cu",
+                 replaces="consensus_specs_tpu/ops/bls12_jax.py:1061",
+                 launches=launches["f12_product"], max_abs_err=err["f12_product"],
+                 bit_equal=err["f12_product"] == 0.0, library_ms=None,
+                 library_null_reason="no PyTorch call multiplies in Fp12", **first,
+                 **{r["shape"]: r for r in more})]
+    for r in shapes.values():
+        print(f"kernel f12_product ({r['shape']}): ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} "
+              f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} fp_muls={r['fp_muls']}", flush=True)
+    combine = {}
+    for w in (1, MESH_WORLD):
+        parts = torch.from_numpy(np.random.default_rng(w).integers(0, 2**40, (w, 32))).to(dev)
+        got, plain = tepoch.epoch_combine(parts, 0), tepoch.epoch_combine_plain(parts, 0)
+        require(torch.equal(got, plain), "epoch_combine differs from its plain version")
+        combine[w] = dict(shape=f"w={w}", ms=time_ms(lambda: tepoch.epoch_combine(parts, 0), 20),
+                          plain_ms=time_ms(lambda: tepoch.epoch_combine_plain(parts, 0), 3),
+                          **bound(0, (w + 1) * 32 * 8))
+    first, *more = combine.values()
+    rows.append(dict(name="epoch_combine", route="cuda",
+                     source="consensus_specs_tpu_torch/csrc/epoch.cu",
+                     replaces="consensus_specs_tpu/parallel/mesh.py:30",
+                     launches=launches["epoch_combine"], max_abs_err=err["epoch_combine"],
+                     bit_equal=err["epoch_combine"] == 0.0, library_ms=None,
+                     library_null_reason="no one PyTorch call folds sums, a max, an OR and a "
+                     "copy by slot", **first, **{r["shape"]: r for r in more}))
+    for r in combine.values():
+        print(f"kernel epoch_combine ({r['shape']}): ms={r['ms']:.5f} "
+              f"bound_ms={r['bound_ms']:.6f} plain_ms={r['plain_ms']:.3f}", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2330,6 +2587,14 @@ def main(argv=None) -> int:
         ejected = int(((pre_exit == -1) & (out.exit_epoch != -1)).sum())
         print(f"check K3 epoch_sweep ({label}): N={N_CHECK} all fields and aux bit-equal; "
               f"{ejected} ejected")
+
+    parts = torch.from_numpy(rng.integers(-2**62, 2**62, (MESH_WORLD, 32))).to(dev)
+    for stage in range(3):
+        got, plain = tepoch.epoch_combine(parts, stage), tepoch.epoch_combine_plain(parts, stage)
+        err["epoch_combine"] = max(err["epoch_combine"], max_abs_err(got, plain))
+        require(torch.equal(got, plain), f"K3 epoch_combine (stage {stage}) differs from its "
+                "plain version")
+    print(f"check K3 epoch_combine: {MESH_WORLD} ranks' vectors at stages 0-2 bit-equal")
 
     seed = hashlib.sha256(b"chip_smoke shuffle").digest()
     seed_words = tshuffle.seed_words_tensor(seed, dev)
@@ -2487,7 +2752,7 @@ def main(argv=None) -> int:
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
         require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS
-                + DAS_KERNELS + RNS_KERNELS,
+                + DAS_KERNELS + RNS_KERNELS + MESH_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -2653,6 +2918,10 @@ def main(argv=None) -> int:
           + f" launches={ {k: v for k, v in rns_launches.items() if v} } K24 by op="
           f"{rns_parts['by_op']} by part={rns_parts['by_part']}", flush=True)
 
+    # 5i. the multi-device path: world size 1 on NCCL, 4 gloo ranks on this
+    # card, the (2, 2) mesh
+    mesh_out, mesh_launches, mesh_in = mesh_main_path(dev, bls_in, cfg)
+
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
     level = rand_words(rng, (m, 16), dev)
@@ -2814,6 +3083,8 @@ def main(argv=None) -> int:
         rows += das_rows(das_inputs, das_parts, err, sass_fr_mul, bound)
     with Aside():
         rows += rns_rows(dev, rns_launches, rns_parts, rns_clocks, err)
+    with Aside():
+        rows += mesh_rows(dev, mesh_in, mesh_launches, err, sass_mul, bound)
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -2829,7 +3100,8 @@ def main(argv=None) -> int:
                           launches=spec_launches),
         "proof_path": dict(proof_out, launches=proof_launches),
         "das_path": dict(das_out, seed=args.seed, launches=das_parts),
-        "rns_path": dict(rns_out, launches=rns_parts)}))
+        "rns_path": dict(rns_out, launches=rns_parts),
+        "mesh_path": dict(mesh_out, launches=mesh_launches)}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

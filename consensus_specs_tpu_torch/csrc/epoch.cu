@@ -2,19 +2,32 @@
 // fixed launch sequence with no host sync. Replaces the XLA program built
 // by consensus_specs_tpu/engine/epoch.py:85 `make_epoch_fn` -> `process_epoch`.
 //
-//   epoch_phase1:  reduce  (one registry pass; u64 sums with integer atomics,
-//                           exact and order independent)
-//                  scalars (<<<1,1>>>: justification and finalization,
-//                           leak, base reward per increment, churn, frontier)
-//                  sweep A (inactivity, rewards and penalties in spec order,
-//                           eject flag, frontier count, activation sort key)
+//   epoch_phase1 = epoch_reduce + epoch_sweep_a:
+//     reduce  (one registry pass; u64 sums with integer atomics, exact and
+//              order independent)
+//     scalars (<<<1,1>>>: justification and finalization, leak, base reward
+//              per increment, churn, frontier)
+//     sweep A (inactivity, rewards and penalties in spec order, eject flag,
+//              frontier count, activation sort key)
 //   host glue:     torch.cumsum over eject (exit queue positions) and a
 //                  stable torch.sort over the activation key
-//   epoch_phase2:  mark    (rank < churn for every sorted position)
-//                  sweep B (exit and withdrawable assignment, activation,
-//                           slashings, effective-balance hysteresis,
-//                           participation rotation, dirty flags)
-//                  finalize (<<<1,32>>>: slashings and randao resets, aux)
+//   epoch_phase2 = epoch_mark + epoch_sweep_b + epoch_finalize:
+//     mark    (rank < churn for every sorted position)
+//     sweep B (exit and withdrawable assignment, activation, slashings,
+//              effective-balance hysteresis, participation rotation, dirty
+//              flags)
+//     finalize (<<<1,32>>>: slashings and randao resets, aux)
+//
+// The registry sharded over w ranks (engine/epoch.py `make_epoch_fn(cfg,
+// mesh)`, the counterpart of the JAX program under parallel/mesh.py's
+// layout, where GSPMD inserts the psums) runs the same entries on each
+// rank's block with collectives where the ranks must agree:
+// epoch_reduce, a gather of the w scal vectors and `epoch_combine` (stage
+// 0), epoch_sweep_a, a gather of scal, the eject counts and the activation
+// keys and `epoch_combine` (stage 1), the exit queue from the earlier ranks'
+// counts, one sort of the gathered keys, epoch_mark over the global order,
+// epoch_sweep_b on the block, a gather and `epoch_combine` (stage 2), and
+// epoch_finalize on the replicated vectors.
 //
 // Bound: device memory. Each sweep reads about 60 bytes per validator (63 MB
 // a pass at N = 2^20); the arithmetic is a few dozen integer operations and
@@ -409,6 +422,29 @@ __global__ void finalize_kernel(EpochParams P, u64* slashings, uint32_t* mixes, 
 }
 
 // ---------------------------------------------------------------------------
+// combine: fold the w ranks' scal vectors (parts, w x 32) into scal, a thread
+// a slot. Stage 0 (after reduce): the balance sums, the active count and the
+// frontier count add, the largest exit is a max, the dirty mask an OR, and
+// the slashings sum is rank 0's (every rank sums the whole replicated
+// vector). Stage 1 (after sweep A): the frontier counts add and the dirty
+// masks OR. Stage 2 (after sweep B): the dirty masks OR. Every other slot is
+// rank 0's: the ranks computed it from the same combined values.
+
+__global__ void combine_kernel(const u64* __restrict__ parts, u64* scal, long long w,
+                               int stage) {
+    const int k = threadIdx.x;
+    u64 v = parts[k];
+    for (long long r = 1; r < w; ++r) {
+        u64 x = parts[32 * r + k];
+        if (k == S_DIRTY) v |= x;
+        else if (k == S_FRONTIER_COUNT && stage <= 1) v += x;
+        else if (stage == 0 && k <= S_ACTIVE_COUNT) v += x;
+        else if (stage == 0 && k == S_MAX_EXIT) v = umax(v, x);
+    }
+    scal[k] = v;
+}
+
+// ---------------------------------------------------------------------------
 // C entry points
 
 static unsigned grid_for(long long n, int threads) {
@@ -419,18 +455,10 @@ static unsigned grid_for(long long n, int threads) {
 
 extern "C" int epoch_params_count() { return (int)(sizeof(EpochParams) / sizeof(u64)); }
 
-extern "C" int epoch_phase1(const void* params, const void* slot, const void* bal,
-                            const void* eff, const void* aee, const void* act, const void* ext,
-                            const void* wd, const void* slashed, const void* prev_part,
-                            const void* curr_part, void* inact, const void* slashings,
-                            const void* block_roots, void* just_bits, const void* ckpts,
-                            void* scal, void* bal_mid, void* eject, void* key, long long n,
-                            void* stream) {
-    EpochParams P = *(const EpochParams*)params;
-    void* const* c = (void* const*)ckpts;
-    Checkpoints C = {(u64*)c[0], (uint32_t*)c[1], (u64*)c[2], (uint32_t*)c[3],
-                     (u64*)c[4], (uint32_t*)c[5]};
-    cudaStream_t st = (cudaStream_t)stream;
+static int reduce_launch(const EpochParams& P, const void* slot, const void* eff,
+                         const void* act, const void* ext, const void* slashed,
+                         const void* prev_part, const void* curr_part, const void* slashings,
+                         void* scal, long long n, cudaStream_t st) {
     const int T = 256;
     unsigned g = grid_for(n > (long long)P.epochs_per_slashings_vector
                               ? n : (long long)P.epochs_per_slashings_vector, T);
@@ -439,6 +467,19 @@ extern "C" int epoch_phase1(const void* params, const void* slot, const void* ba
                                    (const u64*)ext, (const bool*)slashed,
                                    (const uint8_t*)prev_part, (const uint8_t*)curr_part,
                                    (const u64*)slashings, (u64*)scal, n);
+    return (int)cudaGetLastError();
+}
+
+static int sweep_a_launch(const EpochParams& P, const void* slot, const void* bal,
+                          const void* eff, const void* aee, const void* act, const void* ext,
+                          const void* wd, const void* slashed, const void* prev_part,
+                          void* inact, const void* block_roots, void* just_bits,
+                          const void* ckpts, void* scal, void* bal_mid, void* eject, void* key,
+                          long long n, cudaStream_t st) {
+    void* const* c = (void* const*)ckpts;
+    Checkpoints C = {(u64*)c[0], (uint32_t*)c[1], (u64*)c[2], (uint32_t*)c[3],
+                     (u64*)c[4], (uint32_t*)c[5]};
+    const int T = 256;
     scalars_kernel<<<1, 1, 0, st>>>(P, (const u64*)slot, (const uint32_t*)block_roots,
                                     (bool*)just_bits, C, (u64*)scal);
     sweep_a_kernel<<<grid_for(n, T), T, 0, st>>>(
@@ -448,24 +489,111 @@ extern "C" int epoch_phase1(const void* params, const void* slot, const void* ba
     return (int)cudaGetLastError();
 }
 
+static int mark_launch(const void* order, const void* scal, void* rank_ok, long long n,
+                       cudaStream_t st) {
+    mark_kernel<<<grid_for(n, 256), 256, 0, st>>>((const long long*)order, (const u64*)scal,
+                                                 (uint8_t*)rank_ok, n);
+    return (int)cudaGetLastError();
+}
+
+static int sweep_b_launch(const EpochParams& P, void* bal, void* eff, void* aee, void* act,
+                          void* ext, void* wd, const void* slashed, void* prev_part,
+                          void* curr_part, void* scal, const void* bal_mid, const void* eject,
+                          const void* cums, const void* rank_ok, long long n, cudaStream_t st) {
+    sweep_b_kernel<<<grid_for(n, 256), 256, 0, st>>>(
+        P, (u64*)bal, (u64*)eff, (u64*)aee, (u64*)act, (u64*)ext, (u64*)wd,
+        (const bool*)slashed, (uint8_t*)prev_part, (uint8_t*)curr_part, (u64*)scal,
+        (const u64*)bal_mid, (const uint8_t*)eject, (const long long*)cums,
+        (const uint8_t*)rank_ok, n);
+    return (int)cudaGetLastError();
+}
+
+static int finalize_launch(const EpochParams& P, void* slashings, void* mixes, void* scal,
+                           void* aux, cudaStream_t st) {
+    finalize_kernel<<<1, 32, 0, st>>>(P, (u64*)slashings, (uint32_t*)mixes, (u64*)scal,
+                                      (bool*)aux);
+    return (int)cudaGetLastError();
+}
+
+// reduce alone: scal's sums over this block of the registry
+extern "C" int epoch_reduce(const void* params, const void* slot, const void* eff,
+                            const void* act, const void* ext, const void* slashed,
+                            const void* prev_part, const void* curr_part,
+                            const void* slashings, void* scal, long long n, void* stream) {
+    return reduce_launch(*(const EpochParams*)params, slot, eff, act, ext, slashed, prev_part,
+                         curr_part, slashings, scal, n, (cudaStream_t)stream);
+}
+
+// scalars + sweep A over the (combined) sums in scal
+extern "C" int epoch_sweep_a(const void* params, const void* slot, const void* bal,
+                             const void* eff, const void* aee, const void* act,
+                             const void* ext, const void* wd, const void* slashed,
+                             const void* prev_part, void* inact, const void* block_roots,
+                             void* just_bits, const void* ckpts, void* scal, void* bal_mid,
+                             void* eject, void* key, long long n, void* stream) {
+    return sweep_a_launch(*(const EpochParams*)params, slot, bal, eff, aee, act, ext, wd,
+                          slashed, prev_part, inact, block_roots, just_bits, ckpts, scal,
+                          bal_mid, eject, key, n, (cudaStream_t)stream);
+}
+
+extern "C" int epoch_phase1(const void* params, const void* slot, const void* bal,
+                            const void* eff, const void* aee, const void* act, const void* ext,
+                            const void* wd, const void* slashed, const void* prev_part,
+                            const void* curr_part, void* inact, const void* slashings,
+                            const void* block_roots, void* just_bits, const void* ckpts,
+                            void* scal, void* bal_mid, void* eject, void* key, long long n,
+                            void* stream) {
+    const EpochParams P = *(const EpochParams*)params;
+    cudaStream_t st = (cudaStream_t)stream;
+    int e = reduce_launch(P, slot, eff, act, ext, slashed, prev_part, curr_part, slashings,
+                          scal, n, st);
+    if (e) return e;
+    return sweep_a_launch(P, slot, bal, eff, aee, act, ext, wd, slashed, prev_part, inact,
+                          block_roots, just_bits, ckpts, scal, bal_mid, eject, key, n, st);
+}
+
+// scal <- the fold of the w vectors in parts (w x 32 u64) at `stage`
+extern "C" int epoch_combine(const void* parts, void* scal, long long w, long long stage,
+                             void* stream) {
+    if (w < 1) return (int)cudaErrorInvalidValue;
+    combine_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const u64*)parts, (u64*)scal, w,
+                                                       (int)stage);
+    return (int)cudaGetLastError();
+}
+
+// mark alone, over an order of n positions (the whole registry's when sharded)
+extern "C" int epoch_mark(const void* order, const void* scal, void* rank_ok, long long n,
+                          void* stream) {
+    return mark_launch(order, scal, rank_ok, n, (cudaStream_t)stream);
+}
+
+extern "C" int epoch_sweep_b(const void* params, void* bal, void* eff, void* aee, void* act,
+                             void* ext, void* wd, const void* slashed, void* prev_part,
+                             void* curr_part, void* scal, const void* bal_mid,
+                             const void* eject, const void* cums, const void* rank_ok,
+                             long long n, void* stream) {
+    return sweep_b_launch(*(const EpochParams*)params, bal, eff, aee, act, ext, wd, slashed,
+                          prev_part, curr_part, scal, bal_mid, eject, cums, rank_ok, n,
+                          (cudaStream_t)stream);
+}
+
+extern "C" int epoch_finalize(const void* params, void* slashings, void* mixes, void* scal,
+                              void* aux, long long n, void* stream) {
+    return finalize_launch(*(const EpochParams*)params, slashings, mixes, scal, aux,
+                           (cudaStream_t)stream);
+}
+
 extern "C" int epoch_phase2(const void* params, void* bal, void* eff, void* aee, void* act,
                             void* ext, void* wd, const void* slashed, void* prev_part,
                             void* curr_part, void* slashings, void* mixes, void* scal,
                             const void* bal_mid, const void* eject, const void* cums,
                             const void* order, void* rank_ok, void* aux, long long n,
                             void* stream) {
-    EpochParams P = *(const EpochParams*)params;
+    const EpochParams P = *(const EpochParams*)params;
     cudaStream_t st = (cudaStream_t)stream;
-    const int T = 256;
-    unsigned g = grid_for(n, T);
-    mark_kernel<<<g, T, 0, st>>>((const long long*)order, (const u64*)scal,
-                                 (uint8_t*)rank_ok, n);
-    sweep_b_kernel<<<g, T, 0, st>>>(
-        P, (u64*)bal, (u64*)eff, (u64*)aee, (u64*)act, (u64*)ext, (u64*)wd,
-        (const bool*)slashed, (uint8_t*)prev_part, (uint8_t*)curr_part, (u64*)scal,
-        (const u64*)bal_mid, (const uint8_t*)eject, (const long long*)cums,
-        (const uint8_t*)rank_ok, n);
-    finalize_kernel<<<1, 32, 0, st>>>(P, (u64*)slashings, (uint32_t*)mixes, (u64*)scal,
-                                      (bool*)aux);
-    return (int)cudaGetLastError();
+    int e = mark_launch(order, scal, rank_ok, n, st);
+    if (!e) e = sweep_b_launch(P, bal, eff, aee, act, ext, wd, slashed, prev_part, curr_part,
+                               scal, bal_mid, eject, cums, rank_ok, n, st);
+    if (!e) e = finalize_launch(P, slashings, mixes, scal, aux, st);
+    return e;
 }

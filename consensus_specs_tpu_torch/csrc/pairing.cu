@@ -12,10 +12,18 @@
 // - mode 1 (batch): per item, f = m1 (times m2 where given), its final
 //   exponentiation and is_one (`pairing_cube_batch` :762,
 //   `pairing_check_batch` :768);
-// - mode 0 (tail): one block tree-multiplies the n values in place (pairs i
-//   and i + ceil(k/2) at each level, __syncthreads between levels), then
-//   thread 0 exponentiates the product (`f12_prod_reduce` :1061, `rlc_tail`
-//   :1219).
+// - mode 0 (tail): one block tree-multiplies the n values in place
+//   (`f12_tree_product`), then thread 0 exponentiates the product
+//   (`f12_prod_reduce` :1061, `rlc_tail` :1219).
+//
+// K25 f12_product: the same one-block tree product of B Fp12 values
+// (B, 12, 12), in place, and no exponentiation: the Fp12 partial of a mesh
+// rank's shard and the fold of the gathered partials
+// (`f12_prod_reduce` as parallel/collectives.py:147, :153, :236 use it).
+// K12's tail and K25 call one device function, `f12_tree_product`, so the
+// two products cannot drift apart. The order (i with i + ceil(k/2)) is the
+// plain versions' (ops/bls12.py `f12_tree_product_limbs`); any order gives
+// the same canonical value.
 //
 // Bound: operations. A Miller loop is about 7,700 Fp products and a final
 // exponentiation about 9,300 in one thread; a block flush runs 257 Miller
@@ -136,6 +144,26 @@ __global__ void miller_loop_kernel(const fp2 *__restrict__ q, const fp *__restri
 
 constexpr int TAIL_THREADS = 256;
 
+// Tree-multiplies the k Fp12 values m[0..k) into m[0], in place: at each
+// level value i takes value i + ceil(k/2). Every thread of the block calls.
+__device__ void f12_tree_product(uint32_t *m, long long k) {
+    const int t = threadIdx.x;
+    while (k > 1) {
+        long long half = (k + 1) / 2;
+        for (long long i = t; i < k - half; i += blockDim.x) {
+            fp12 a, b;
+            f12_load(a, m + 144 * i);
+            f12_load(b, m + 144 * (i + half));
+            f12_mul(a, a, b);
+            f12_store(m + 144 * i, a);
+        }
+        __syncthreads();
+        k = half;
+    }
+}
+
+__global__ void f12_product_kernel(uint32_t *m, long long n) { f12_tree_product(m, n); }
+
 __global__ void final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok,
                                  long long n, int mode) {
     if (mode == 1) {
@@ -152,20 +180,8 @@ __global__ void final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out,
         ok[i] = f12_is_one(f) ? 1 : 0;
         return;
     }
-    int t = threadIdx.x;
-    for (long long k = n; k > 1;) {
-        long long half = (k + 1) / 2;
-        for (long long i = t; i < k - half; i += blockDim.x) {
-            fp12 a, b;
-            f12_load(a, m + 144 * i);
-            f12_load(b, m + 144 * (i + half));
-            f12_mul(a, a, b);
-            f12_store(m + 144 * i, a);
-        }
-        __syncthreads();
-        k = half;
-    }
-    if (t == 0) {
+    f12_tree_product(m, n);
+    if (threadIdx.x == 0) {
         fp12 f;
         f12_load(f, m);
         final_exponentiation(f, f);
@@ -211,5 +227,15 @@ extern "C" int final_exp(void *m, const void *m2, void *out, void *ok, long long
                                                         (int *)ok, n, 0);
         }
     }
+    return (int)cudaGetLastError();
+}
+
+// K25: the product of the n Fp12 values of m (n, 12, 12), in place into
+// m[0]; no exponentiation. One block.
+extern "C" int f12_product(void *m, long long n, void *stream) {
+    int e = ensure_stack();
+    if (e) return e;
+    if (n > 0)
+        f12_product_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>((uint32_t *)m, n);
     return (int)cudaGetLastError();
 }

@@ -43,11 +43,14 @@ from .state import DIRTY_TRACKED, EpochConfig, EpochState
 from .sync_committee import sync_committee_for_state
 
 
-def step_body(cfg: EpochConfig):
+def step_body(cfg: EpochConfig, mesh=None):
     """`process_epoch` plus the inter-epoch slot advance, in place: the
     spec runs process_epoch at the last slot of an epoch and process_slots
-    then moves SLOTS_PER_EPOCH slots on."""
-    epoch_fn = make_epoch_fn(cfg)
+    then moves SLOTS_PER_EPOCH slots on. With `mesh` the state is this
+    rank's shard and the step the sharded one (engine/epoch.py
+    `make_epoch_fn(cfg, mesh)`): k resident epochs over the sharded
+    registry are k such steps."""
+    epoch_fn = make_epoch_fn(cfg, mesh)
 
     def step(st: EpochState):
         st, aux = epoch_fn(st)

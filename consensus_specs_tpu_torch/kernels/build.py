@@ -49,7 +49,8 @@ LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep"
                             "miller_loop": 0, "final_exp": 0, "g1_msm": 0, "g1_subgroup": 0,
                             "fc_ancestors": 0, "fc_vote_weights": 0, "fc_subtree": 0,
                             "fc_head_walk": 0, "tree_root_batch": 0, "multiproof_heap": 0,
-                            "multiproof_siblings": 0, "fr_ntt": 0, "fr_ops": 0, "rns_ops": 0}
+                            "multiproof_siblings": 0, "fr_ntt": 0, "fr_ops": 0, "rns_ops": 0,
+                            "epoch_combine": 0, "f12_product": 0}
 
 
 class KernelError(RuntimeError):

@@ -42,11 +42,13 @@ csrc/curve.cuh):
 - K12 `final_exp`: the final exponentiation and `f12_is_one` (:611, :628),
   by item (`pairing_cube_batch` :762, `pairing_check_batch` :768) or after a
   one-block tree product (`f12_prod_reduce` :1061, `rlc_tail` :1219);
+- K25 `f12_product`: that one-block tree product alone, no exponentiation
+  (`f12_prod_reduce` :1061 as the mesh collectives use it);
 - K13 `g1_msm` (csrc/msm.cu): the windowed bucket MSM (`g1_msm_pippenger`
   :1291), affine out;
 - K14 `g1_subgroup` (csrc/msm.cu): [r]·P == infinity per item (:1347).
 The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
-segment.
+segment; [z]·(-G1) (`g1_fixed_mul_neg_g1` :854) is K9 over -G1.
 Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
 CPU tensors.
 
@@ -752,14 +754,43 @@ def final_exp_batch_plain(m1, m2=None):
     return _f12_words(cube), f12_is_one(cube)
 
 
-def final_exp_tail_plain(m, extra):
-    """Plain version of K12's tail mode (see `final_exp_tail`)."""
-    f = _f12_limbs(torch.cat([m, extra[None]]))
-    while f.shape[0] > 1:  # the kernel's pairing: i with i + ceil(n/2)
+def f12_tree_product_limbs(f):
+    """The product of the n Fp12 values f (n, 6, 2, 24), in the tree order of
+    K12's tail and K25 (csrc/pairing.cu `f12_tree_product`): at each level
+    value i takes value i + ceil(n/2)."""
+    while f.shape[0] > 1:
         n, half = f.shape[0], (f.shape[0] + 1) // 2
         f = torch.cat([f12_mul(f[:n - half], f[half:]), f[n - half:half]])
-    cube = final_exponentiation_limbs(f[0])
+    return f[0]
+
+
+def final_exp_tail_plain(m, extra):
+    """Plain version of K12's tail mode (see `final_exp_tail`)."""
+    f = f12_tree_product_limbs(_f12_limbs(torch.cat([m, extra[None]])))
+    cube = final_exponentiation_limbs(f)
     return _f12_words(cube), f12_is_one(cube)
+
+
+def f12_product_plain(m):
+    """Plain version of K25 (see `f12_product`)."""
+    return _f12_words(f12_tree_product_limbs(_f12_limbs(m)))
+
+
+def f12_product(m):
+    """K25: the product of the B Fp12 values m (B, 12, 12), B >= 1 -> (12,
+    12), with no final exponentiation (`f12_prod_reduce` :1061): one block
+    tree-multiplies a copy of m by the tree of K12's tail. Kernel on CUDA,
+    plain on the CPU."""
+    m = _check("f12_product", m, (12, NWORDS))
+    if m.shape[0] < 1:
+        raise ValueError("f12_product of no values")
+    if is_cpu(m):
+        return f12_product_plain(m)
+    work = m.clone()
+    fn = build.entry("pairing", "f12_product", 1)
+    build.count_launch("f12_product")
+    build.check(fn(work.data_ptr(), work.shape[0], build.stream_ptr(work)), "f12_product")
+    return work[0]
 
 
 def _final_exp(m1, m2, mode):
@@ -822,6 +853,16 @@ def pairing_check_batch(q1, p1, q2, p2):
     b = q1.shape[0]
     m = miller_loop(torch.cat([q1, q2]), torch.cat([p1, p2]))
     return final_exp_batch(m[:b], m[b:])[1]
+
+
+def g1_fixed_mul_neg_g1(zbits):
+    """[z_i]·(-G1) per item, Jacobian (N, 3, 12) (`g1_fixed_mul_neg_g1`
+    :854). JAX reads 8-bit windows of fixed tables; here K9's G1 ladder runs
+    over -G1: the same points by another algorithm (compare affine: the
+    Jacobian representatives differ)."""
+    zbits = _check("g1_fixed_mul_neg_g1 zbits", zbits, (2,))
+    base = neg_g1_words(zbits.device).expand(zbits.shape[0], 2, NWORDS).contiguous()
+    return rlc_ladders(base, None, zbits, affine_g1=False)[0]
 
 
 def rlc_randomize_g1(p, zbits):

@@ -283,15 +283,16 @@ def test_device_roots_on_card_match_field_roots(cuda):
 # --- the BLS kernels (K8-K12) ---------------------------------------------------------
 
 
-def _counted(name):
-    """Context: the test body must launch kernel `name` exactly once."""
+def _counted(name, times=1):
+    """Context: the test body must launch kernel `name` exactly `times`
+    times (once by default)."""
     class _Count:
         def __enter__(self):
             self.before = build.LAUNCHES[name]
 
         def __exit__(self, *exc):
             torch.cuda.synchronize()
-            assert exc[0] is not None or build.LAUNCHES[name] == self.before + 1
+            assert exc[0] is not None or build.LAUNCHES[name] == self.before + times
             return False
     return _Count()
 
@@ -921,3 +922,124 @@ def test_rns_flush_on_card_matches_limb(cuda):
     assert build.LAUNCHES["rns_ops"] > 0
     assert not any(build.LAUNCHES[k] for k in ("fp_ops", "rlc_ladders", "point_sums",
                                                 "miller_loop", "final_exp"))
+
+
+# --- slice 10: K25, K3's phases, the mesh path at world size 1 on NCCL ------
+
+
+class _OneRank:
+    """A one-rank stand-in for parallel/mesh.MeshComm."""
+
+    size, rank = 1, 0
+
+    @staticmethod
+    def all_gather(t):
+        return t[None].clone()
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 256, 1025])
+def test_f12_product_kernel_matches_plain(cuda, b):
+    rng = np.random.default_rng(b)
+    ints = [int.from_bytes(rng.bytes(48), "little") % tfp.P for _ in range(12 * b)]
+    m = torch.from_numpy(tfp.ints_to_mont_words(ints)).reshape(b, 12, tfp.NWORDS)
+    md = m.to(cuda)
+    with _counted("f12_product"):
+        got = tbls.f12_product(md)
+    assert torch.equal(md.cpu(), m), "f12_product must leave its input as it was"
+    assert torch.equal(got.cpu(), tbls.f12_product_plain(m))
+
+
+@pytest.mark.parametrize("case", ["synthetic", "ejections_and_queue", "slashing_hit", "boundary"])
+def test_epoch_phase_entries_compose(cuda, case):
+    """epoch_reduce -> epoch_sweep_a equals epoch_phase1 on every output,
+    and the whole sharded composition on one rank (the combine, mark,
+    sweep B and finalize entries) equals K3's two-launch step."""
+    import ctypes
+
+    cfg = EpochConfig.altair_mainnet()
+    d = CASES[case](cfg, 4096, seed=3)
+    a, b = epoch_state_from_numpy(d, cuda), epoch_state_from_numpy(d, cuda)
+    n = a.num_validators
+    buf_a, buf_b = tepoch._buffers(n, cuda), tepoch._buffers(n, cuda)
+    tepoch.epoch_reduce(cfg, a, buf_a[0])
+    tepoch.epoch_sweep_a(cfg, a, *buf_a)
+    ckpts = tepoch._ckpts(b)
+    build.check(build.entry("epoch", "epoch_phase1", 20)(
+        ctypes.addressof(tepoch._kernel_params(cfg)), b.slot.data_ptr(), b.balances.data_ptr(),
+        b.effective_balance.data_ptr(), b.activation_eligibility_epoch.data_ptr(),
+        b.activation_epoch.data_ptr(), b.exit_epoch.data_ptr(), b.withdrawable_epoch.data_ptr(),
+        b.slashed.data_ptr(), b.prev_participation.data_ptr(), b.curr_participation.data_ptr(),
+        b.inactivity_scores.data_ptr(), b.slashings.data_ptr(), b.block_roots.data_ptr(),
+        b.justification_bits.data_ptr(), ctypes.addressof(ckpts), buf_b[0].data_ptr(),
+        buf_b[1].data_ptr(), buf_b[2].data_ptr(), buf_b[3].data_ptr(), n,
+        build.stream_ptr(b.balances)), "epoch_phase1")
+    torch.cuda.synchronize()
+    for x, y in zip(buf_a, buf_b):
+        assert torch.equal(x, y)
+    for name, t in a.items():
+        assert torch.equal(t, getattr(b, name)), name
+    one, two = epoch_state_from_numpy(d, cuda), epoch_state_from_numpy(d, cuda)
+    with _counted("epoch_combine", 3):
+        aux = tepoch.sharded_epoch_step(cfg, one, _OneRank())
+    want_aux = tepoch.epoch_sweep(cfg, two)
+    for name, t in one.items():
+        assert torch.equal(t, getattr(two, name)), name
+    assert torch.equal(aux.flat(), want_aux.flat())
+
+
+def test_epoch_combine_kernel_matches_plain(cuda):
+    parts = torch.tensor(np.random.default_rng(2).integers(-2**62, 2**62, (5, 32)),
+                         dtype=torch.int64)
+    for stage in range(3):
+        got = tepoch.epoch_combine(parts.to(cuda), stage)
+        assert torch.equal(got.cpu(), tepoch.epoch_combine_plain(parts, stage)), stage
+
+
+def test_mesh_path_world_one_on_nccl(cuda):
+    """World size 1 on NCCL in this process: the G1 sum, both randomized
+    checks and the sharded epoch step equal the single-device path's."""
+    import torch.distributed as dist
+
+    from consensus_specs_tpu_torch.parallel import collectives as C
+    from consensus_specs_tpu_torch.parallel.mesh import (
+        gather_epoch_state,
+        make_mesh,
+        shard_epoch_state,
+    )
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh()
+        pts, _ = C.g1_small_multiples(1100, cuda)
+        with _counted("point_sums", 3):
+            got = C.g1_mesh_sum(pts, mesh)
+        whole = torch.tensor([0, 1100], device=cuda)
+        assert torch.equal(got, tbls.point_sums(pts, whole)[0])
+        p, q, s = _bls_items(12, 12, 4)
+        zb = bls_torch.zbits_from_ints(np.random.default_rng(5).integers(1, 2**63, 12)).to(cuda)
+        neg = tbls.neg_g1_words(cuda)[None].expand(12, 2, 12).contiguous()
+        bad = s.clone()
+        bad[7] = s[6]
+        for sig, want in ((s, True), (bad, False)):
+            args = (q.to(cuda), p.to(cuda), sig.to(cuda))
+            with _counted("f12_product"):
+                ok = C.pairing_check_rlc_mesh(mesh, *args, neg, zb, p2_is_neg_g1=True)
+            assert bool(ok) == bool(tbls.pairing_check_rlc(*args, zb)) == want
+            assert bool(C.pairing_check_rlc_mesh(mesh, *args, neg, zb)) == want
+        seg = torch.tensor([i % 3 for i in range(12)], device=cuda)
+        pg, qg, sg = _bls_items(12, 3, 4)
+        args = (qg[:3].to(cuda), pg.to(cuda), sg.to(cuda), zb, seg)
+        assert bool(C.pairing_check_rlc_grouped_mesh(mesh, *args))
+        assert bool(tbls.pairing_check_rlc(*args))
+        cfg = EpochConfig.altair_mainnet()
+        d = CASES["ejections_and_queue"](cfg, 4096, seed=3)
+        shard = shard_epoch_state(epoch_state_from_numpy(d, cuda), mesh)
+        ref = epoch_state_from_numpy(d, cuda)
+        _, aux = tepoch.make_epoch_fn(cfg, mesh)(shard)
+        want_aux = tepoch.epoch_sweep(cfg, ref)
+        whole_state = gather_epoch_state(shard, mesh)
+        for name, t in whole_state.items():
+            assert torch.equal(t, getattr(ref, name)), name
+        assert torch.equal(aux.flat(), want_aux.flat())
+    finally:
+        dist.destroy_process_group()

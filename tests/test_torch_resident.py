@@ -152,5 +152,7 @@ def test_port_imports_no_jax():
     seen = json.loads(res.stdout.strip().splitlines()[-1])
     assert seen["bad"] == []
     for name in ("engine.resident", "compiler.spec_compiler", "ssz.types", "ssz.merkle",
-                 "engine.bridge", "engine.routing", "testlib.big_state"):
+                 "engine.bridge", "engine.routing", "testlib.big_state", "parallel.mesh",
+                 "parallel.collectives", "parallel.multihost", "testlib.ranks",
+                 "testlib.mesh_workers"):
         assert f"consensus_specs_tpu_torch.{name}" in seen["port"], name
