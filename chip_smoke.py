@@ -34,7 +34,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K24 rns_ops at all 11 op codes on 300 seeded residue vectors with the
    field's edges (0, 1, p, 2p, -1, -p, R, 3p - 1), sum_stack over 1, 3 and 8
    rows, mont_reduce also on wide products and on 127 inputs whose q lies
-   next to M_A/4 (the float32 alpha's boundary); K25 f12_product over the 8
+   next to M_A/4 (the float32 alpha's boundary); K9-K12's RNS instances (one
+   warp an item over csrc/fp_rns.cuh) at 4 items, each bit-equal to the RNS
+   plain version (z = 0, 1, 2^64 - 1, an empty segment); K25 f12_product over the 8
    Miller values of the K8-K12 check, and K3's epoch_combine over 4 ranks'
    vectors at its three stages;
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
@@ -145,20 +147,21 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    host wall and by CUDA events, host pointwise and layout) and the busy
    shares (CUDA-event device time over the wall);
 5h. phase 5's BLS flushes over the RNS field backend
-   (`ops/bls12.set_field_backend("rns")`: ops/bls12_field.py over K24), launch
-   counts zeroed before and read after: the block, the block with phase 5's
-   bad signature, the gossip aggregates, the gossip batch with phase 5's bad
-   item (the per-item pass must name it, as the limb path's does), the
-   shim's 20 calls and their bad twin; every verdict, flush record and
-   Miller-loop count equal to phase 5's, K24 launched and K8-K12 not. It
-   prints `bls_block_flush_rns_ms` and `bls_gossip_flush_rns_ms` (CUDA events
-   and host wall; the block's after one uncounted first flush, which is
-   timed on its own as `bls_block_flush_rns_first_ms` with its cudaMalloc
-   calls and garbage-collector passes beside the warm flush's), K24
-   launches by op code and part, and, from uncounted reruns under
-   torch.profiler, the kernels' device time, the busy share (that time over
-   the counted flush's host wall) and the commonest mont_mul and
-   mont_reduce shapes;
+   (`ops/bls12.set_field_backend("rns")`: K9-K12's RNS instances, one warp
+   an item), launch counts zeroed before and read after: the block, the
+   block with phase 5's bad signature, the gossip aggregates, the gossip
+   batch with phase 5's bad item (the per-item pass must name it, as the
+   limb path's does), the shim's 20 calls and their bad twin; every verdict,
+   flush record and Miller-loop count equal to phase 5's, the four RNS
+   instances launched, no limb K8-K12 launch, and K24 at most the
+   conversions (the packing is on the host: none). It prints
+   `bls_block_flush_rns_ms` and `bls_gossip_flush_rns_ms` (CUDA events and
+   host wall; the block's after one uncounted first flush, which is timed on
+   its own as `bls_block_flush_rns_first_ms` with its cudaMalloc calls and
+   garbage-collector passes beside the warm flush's), launches by kernel and
+   part, K24's a flush, the busy share from uncounted reruns under
+   torch.profiler (the kernels' device time over the counted flush's host
+   wall), and the phase's own time;
 5i. the multi-device path (`mesh_main_path`: consensus_specs_tpu_torch/
    parallel driven by `testlib/mesh_workers.mesh_path`): every kernel is
    built before any rank starts; (a) world size 1 on NCCL in this process
@@ -205,10 +208,15 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    forward, and K23's product at M = 32,768 and its inverse there, their
    least time from (n/2)·log2 n Fr products (plus n for the 1/n scale) or M
    products times the instructions of K23's product in its SASS, or the
-   bytes read and written once; K24's mont_mul and mont_reduce at the block
-   and gossip flushes' commonest M, bit-equal to the plain version there,
-   their least time from the instructions one mont_mul executes (its SASS,
-   the extensions' loop bodies 32 times) x M; K25 at the B phase 5i gave it
+   bytes read and written once; K24's mont_mul at M = 2, 256 and 1,024 and
+   mont_reduce at 256, bit-equal to the plain version there, their least
+   time the instructions a product needs (3,716) x M or the bytes, the
+   larger, and beside it the SASS one lane executes a product and the
+   kernel's own time from torch.profiler; K9-K12's RNS
+   instances at the block flush's shapes (K9 at N = 256, K10 on its G2
+   collapse, K11 at B = 257, K12's tail at 257), bit-equal to the RNS plain
+   version there, their least time that version's Fp products x 3,716 lane
+   instructions; K25 at the B phase 5i gave it
    (1,024 and 256: a rank's shard of the ungrouped check at world 1 and 4;
    64 and 16: its groups) on the flush's Miller values, bit-equal to its
    plain version there, its least time the plain version's Fp products
@@ -269,6 +277,7 @@ PROOF_ROUNDS = 3         # cold, then two epochs each followed by a warm round
 PROOF_ORACLE_CHECKS = 8  # branches a round also held against build_chunk_proof
 DAS_KERNELS = ("fr_ntt", "fr_ops")
 RNS_KERNELS = ("rns_ops",)
+RNS_BLS_KERNELS = ("rlc_ladders_rns", "point_sums_rns", "miller_loop_rns", "final_exp_rns")
 DAS_PRESET = "mainnet"   # 64 blobs of 16,384 points a slot
 DAS_WITHHELD = 256       # samples withheld from the reconstructed blob (of 4,096)
 DAS_SAMPLE_POINTS = 16   # the sampling part's blob: 32 points extended, 4 samples
@@ -334,7 +343,8 @@ def _sass_ops(name: str, kernel: str) -> list:
                           text=True, check=True, timeout=120).stdout
     sections = [sec for sec in sass.split("Function : ")[1:]
                 if kernel in sec.split(None, 1)[0]]
-    require(len(sections) == 1, f"SASS of {kernel} not found in {name}")
+    require(len(sections) == 1, f"SASS of {kernel} not found in {name} (functions: "
+            f"{[sec.split(None, 1)[0] for sec in sass.split('Function : ')[1:]][:40]})")
     return [(int(m.group(1), 16), m.group(2).strip())
             for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sections[0])]
 
@@ -795,33 +805,6 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
     return rows
 
 
-class RnsShapes:
-    """While active: the (op, M) of every `fp_rns.rns_ops` call (K24's
-    shapes), at the cost of one Counter update a call."""
-
-    def __enter__(self):
-        from consensus_specs_tpu_torch.ops import fp_rns
-
-        self.shapes, self.rns_ops = Counter(), fp_rns.rns_ops
-
-        def shaped(op, a, b=None):
-            self.shapes[(fp_rns.OP_NAMES[op], a.shape[-2])] += 1
-            return self.rns_ops(op, a, b)
-
-        fp_rns.rns_ops = shaped
-        return self
-
-    def __exit__(self, *exc):
-        from consensus_specs_tpu_torch.ops import fp_rns
-
-        fp_rns.rns_ops = self.rns_ops
-        return False
-
-    def commonest(self, op: str) -> int:
-        """The M that `op` was called with most often."""
-        return max(((n, m) for (o, m), n in self.shapes.items() if o == op))[1]
-
-
 class HostCosts:
     """While active: the caching allocator's cudaMalloc calls (the growth of
     its `segment.all.allocated` count) and Python's garbage-collector passes
@@ -926,33 +909,84 @@ def check_rns_kernel(dev, err: dict) -> None:
           flush=True)
 
 
+def rns_bls_items(n, seed, dev):
+    """n seeded (pk, H(m), sig) over two messages as RNS residues on dev."""
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
+    from consensus_specs_tpu_torch.engine.convert import rns_from_words
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    F1, F2 = oracle.FP_FIELD, oracle.FP2_FIELD
+    ks = [int(k) for k in np.random.default_rng(seed).integers(1, 2**62, n, dtype=np.int64)]
+    hs = [hash_to_curve_g2(b"chip_smoke rns %d" % (i % 2)) for i in range(n)]
+    pks = [oracle.pt_to_affine(F1, oracle.pt_mul(F1, oracle.G1_GEN, k)) for k in ks]
+    sigs = [oracle.pt_to_affine(F2, oracle.pt_mul(F2, oracle.pt_from_affine(F2, h), k))
+            for h, k in zip(hs, ks)]
+    return tuple(rns_from_words(t).to(dev) for t in (B.g1_to_words(pks), B.g2_to_words(hs),
+                                                     B.g2_to_words(sigs)))
+
+
+def check_rns_bls_kernels(dev, err: dict) -> None:
+    """K9-K12's RNS instances each bit-equal to the RNS plain version on the
+    card at 4 items (seeded keys, two messages, z = 0, 1, 2^64 - 1 among the
+    scalars, an empty G1 segment): K9 both G1 forms, K10 on G1 segments and
+    the G2 collapse, K11, K12's batch mode (with m2) and tail."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    pks, hs, sigs = rns_bls_items(4, 12, dev)
+    zb = zbits_from_ints([0, 1, 2**64 - 1, 987654321987654321], dev)
+
+    def held(name, got, plain):
+        pairs = [(g, w) for g, w in zip(_outputs(got), _outputs(plain)) if g is not None]
+        err[name] = max(err[name], *(max_abs_err(g, w) for g, w in pairs))
+        require(all(torch.equal(g, w) for g, w in pairs),
+                f"{name} differs from its plain version at 4 items")
+
+    for affine in (True, False):
+        held("rlc_ladders_rns", B.rlc_ladders(pks, sigs, zb, affine),
+             B.rlc_ladders_plain(pks, sigs, zb, affine))
+    g1j, g2j = B.rlc_ladders(pks, sigs, zb, affine_g1=False)
+    for pts, off in ((g1j, [0, 1, 1, 4]), (g2j, [0, 4])):
+        off = torch.tensor(off, device=dev)
+        held("point_sums_rns", B.point_sums(pts, off), B.point_sums_plain(pts, off))
+    m = B.miller_loop(hs, pks)
+    held("miller_loop_rns", m, B.miller_loop_plain(hs, pks))
+    held("final_exp_rns", B.final_exp_batch(m[:2], m[2:]), B.final_exp_batch_plain(m[:2], m[2:]))
+    held("final_exp_rns", B.final_exp_tail(m[:-1], m[-1]), B.final_exp_tail_plain(m[:-1], m[-1]))
+    print("check K9-K12 rns instances: 4 items bit-equal to the RNS plain version (K9 both G1 "
+          "forms with z = 0, 1, 2^64-1; K10 G1 segments with an empty one, G2 collapse; K11; "
+          "K12 batch with m2, tail)", flush=True)
+
+
 def rns_main_path(dev, inputs, limb: dict) -> tuple:
     """Phase 5h: phase 5's BLS flushes under the "rns" field backend (the
-    randomized check and the per-item attribution over ops/bls12_field.py and
-    K24), launch counts zeroed just before and read just after: the block
-    (131 checks, the ungrouped path), the block with phase 5's bad signature
-    (attribution), the gossip aggregates (1,024 checks over 64 messages, the
-    grouped path), the gossip batch with phase 5's bad item (it fails and the
-    per-item pass names it), the shim's 20 calls and their bad twin. Each
-    verdict, flush record and Miller-loop count must be phase 5's ("limb");
-    no K8-K12 launch. Before them, uncounted, the process's first RNS block
-    flush, timed on its own with its allocator and garbage-collector counts
-    (`HostCosts`, also taken on the counted block flush). After them,
-    uncounted, the block and gossip flushes again under torch.profiler: the
-    kernels' device time, set against the counted flush's host wall for the
-    busy share (the profiler slows the host, not the kernels), and K24's
-    calls by op and M. Returns (the numbers, launches, K24 launches by op and
-    part, the K24 shapes of each rerun)."""
+    randomized check and the per-item attribution on K9-K12's RNS
+    instances), launch counts zeroed just before and read just after: the
+    block (131 checks, the ungrouped path), the block with phase 5's bad
+    signature (attribution), the gossip aggregates (1,024 checks over 64
+    messages, the grouped path), the gossip batch with phase 5's bad item (it
+    fails and the per-item pass names it), the shim's 20 calls and their bad
+    twin. Each verdict, flush record and Miller-loop count must be phase 5's
+    ("limb"); the four RNS instances launched, no limb K8-K12 launch, no K24
+    launch (the packing converts on the host). Before them, uncounted, the
+    process's first RNS block flush, timed on its own with its allocator and
+    garbage-collector counts (`HostCosts`, also taken on the counted block
+    flush). After them, uncounted, the block and gossip flushes again under
+    torch.profiler: the kernels' device time, set against the counted
+    flush's host wall for the busy share (the profiler slows the host, not
+    the kernels). Returns (the numbers, launches, launches by part)."""
     import torch
 
     from consensus_specs_tpu_torch.crypto import bls_torch
     from consensus_specs_tpu_torch.kernels import build
     from consensus_specs_tpu_torch.ops import bls12 as B
-    from consensus_specs_tpu_torch.ops import bls12_field as BF
-    from consensus_specs_tpu_torch.ops import fp_rns
     from consensus_specs_tpu_torch.profile_main_path import profile_window
     from consensus_specs_tpu_torch.utils import bucketing
 
+    t_phase = time.perf_counter()
     block, gossip, shim = inputs
     b = bucketing.pow2_bucket(len(block), 8)
     plan = bucketing.grouped_plan([c.q1 for c in gossip], 8)
@@ -973,14 +1007,13 @@ def rns_main_path(dev, inputs, limb: dict) -> tuple:
         out["block_first_host_costs"] = first.summary()
         torch.cuda.synchronize()
         build.reset_launches()
-        fp_rns.OP_LAUNCHES.clear()
 
         def flush(part, checks):
-            before, loops0 = fp_rns.OP_LAUNCHES.copy(), BF.miller_loop_items
+            before, loops0 = dict(build.LAUNCHES), B.miller_loop_items
             ok, ms, wall = timed(lambda: bls_torch.run_checks(checks, dev))
-            by_part[part] = dict(fp_rns.OP_LAUNCHES - before)
-            out[f"{part}_miller_loops"] = BF.miller_loop_items - loops0
-            out[f"{part}_k24_launches"] = sum(by_part[part].values())
+            by_part[part] = {k: v - before[k] for k, v in build.LAUNCHES.items() if v > before[k]}
+            out[f"{part}_miller_loops"] = B.miller_loop_items - loops0
+            out[f"{part}_k24_launches"] = by_part[part].get("rns_ops", 0)
             return ok, ms, wall
 
         with HostCosts() as warm:
@@ -1010,78 +1043,72 @@ def rns_main_path(dev, inputs, limb: dict) -> tuple:
         require(named == limb_gossip_named
                 and out["gossip_attribution_miller_loops"] == plan.b_d + 1 + 2 * plan.b_n,
                 f"rns gossip attribution named {named}, limb {limb_gossip_named}")
-        before = fp_rns.OP_LAUNCHES.copy()
+        before = dict(build.LAUNCHES)
         shim_out = shim_flushes(dev, shim)
-        by_part["shim"] = dict(fp_rns.OP_LAUNCHES - before)
+        by_part["shim"] = {k: v - before[k] for k, v in build.LAUNCHES.items() if v > before[k]}
         out["bls_shim_flush_rns_wall_ms"] = shim_out["bls_shim_flush_wall_ms"]
         out["shim_flush_rns"] = shim_out["shim_flush"]
         require(shim_out["shim_flush"] == limb["shim_flush"],
                 f"rns shim flush {shim_out['shim_flush']} != limb {limb['shim_flush']}")
         torch.cuda.synchronize()
         launches = dict(build.LAUNCHES)
-        by_op = dict(fp_rns.OP_LAUNCHES)
-        require(launches["rns_ops"] > 0 and not any(launches[k] for k in BLS_KERNELS),
-                f"under rns: K24 {launches['rns_ops']} launches, K8-K12 "
-                f"{ {k: launches[k] for k in BLS_KERNELS} }")
-        clocks = {}
+        require(all(launches[k] > 0 for k in RNS_BLS_KERNELS)
+                and not any(launches[k] for k in BLS_KERNELS) and launches["rns_ops"] == 0,
+                f"under rns: RNS instances { {k: launches[k] for k in RNS_BLS_KERNELS} }, limb "
+                f"K8-K12 { {k: launches[k] for k in BLS_KERNELS} }, K24 {launches['rns_ops']}")
         with Aside():
             for part, checks in (("block", block), ("gossip", gossip)):
-                with RnsShapes() as shapes:
-                    wall_us, rows = profile_window(lambda: bls_torch.run_checks(checks, dev),
-                                                   torch)
-                clocks[part] = shapes
+                wall_us, rows = profile_window(lambda: bls_torch.run_checks(checks, dev), torch)
                 wall = out[f"bls_{part}_flush_rns_wall_ms"]
                 device = 1e-3 * sum(r[2] for r in rows) if rows else None
                 out[f"{part}_rns_device_ms"] = device
                 out[f"{part}_rns_busy_share"] = None if device is None else device / wall
                 out[f"{part}_rns_profiled_wall_ms"] = 1e-3 * wall_us
-                out[f"{part}_rns_commonest_mont_mul_m"] = shapes.commonest("mont_mul")
-                out[f"{part}_rns_commonest_mont_reduce_m"] = shapes.commonest("mont_reduce")
     finally:
         B.set_field_backend("limb")
-    print(f"rns main path: block flush of {len(block)} checks ok ({out['block_k24_launches']} "
-          f"K24 launches, {out['block_miller_loops']} Miller loops), bad signature at {bad_at} "
-          f"attributed; gossip flush of {len(gossip)} over {plan.d} messages ok "
-          f"({out['gossip_k24_launches']} K24 launches, {out['gossip_miller_loops']} Miller "
-          f"loops), its bad item {gat} named; shim flushed once, its bad call raised; verdicts, "
-          f"records and Miller counts = the limb runs'; no K8-K12 launch", flush=True)
-    return out, launches, dict(by_op=by_op, by_part=by_part), clocks
+    out["phase_5h_s"] = time.perf_counter() - t_phase
+    print(f"rns main path: block flush of {len(block)} checks ok, {out['block_miller_loops']} "
+          f"Miller loops; bad signature at {bad_at} attributed; gossip flush of {len(gossip)} "
+          f"over {plan.d} messages ok, {out['gossip_miller_loops']} Miller loops, its bad item "
+          f"{gat} named; shim flushed once, its bad call raised; verdicts, records and Miller "
+          f"counts = the limb runs'; launches by part {by_part}; K24 a flush: block "
+          f"{out['block_k24_launches']}, gossip {out['gossip_k24_launches']}; no limb K8-K12 "
+          f"launch; phase 5h took {out['phase_5h_s']:.1f} s", flush=True)
+    return out, launches, by_part
 
 
 def sass_rns_mont_mul() -> int:
-    """Instructions one thread executes in K24's mont_mul instance: its SASS
-    up to the last EXIT, NOPs left out, with the bodies of its two loops (one
-    trip a destination channel of each base extension, `#pragma unroll 1`)
-    counted 32 times. Fails unless there are exactly those two loops."""
+    """SASS instructions one lane executes in a Montgomery product on the
+    warp-wide field: the bodies of `fp_mul(rns_w)` and `rns_mont_reduce`
+    (csrc/fp_rns.cuh, both `__noinline__`, their 2 x 32 shuffle steps
+    unrolled), which ptxas places after the last EXIT of the mont_mul
+    instance `rns_ops_kernel<5>`. NOPs are left out, and so is the branch
+    to itself that follows an EXIT and is never taken. Raises if that code
+    branches anywhere else, since the count then would not be the executed
+    count."""
     import re
 
-    from consensus_specs_tpu_torch.ops import fp_rns
-
-    ops = [(a, re.sub(r"^@!?U?P[T0-9]+\s+", "", op))
-           for a, op in _sass_ops("fp_rns", "rns_ops_kernelILi5E")]
+    ops = [(addr, re.sub(r"^@!?U?P[T0-9]+\s+", "", op))
+           for addr, op in _sass_ops("fp_rns", "rns_ops_kernelILi5E")]
     last = max(i for i, (_, op) in enumerate(ops) if op.startswith("EXIT"))
-    body = [(a, op) for a, op in ops[:last + 1] if not op.startswith("NOP")]
-    loops = []
-    for addr, op in body:
-        m = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+)", op)
-        if m and int(m.group(1), 16) < addr:
-            loops.append(sum(1 for a, _ in body if int(m.group(1), 16) <= a <= addr))
-    require(len(loops) == 2, f"K24 mont_mul: {len(loops)} loops in its SASS, expected the two "
-            "base extensions")
-    total = len(body) + (fp_rns.K_PER_BASE - 1) * sum(loops)
-    print(f"sass rns_ops mont_mul: {len(body)} instructions, loop bodies {loops} run "
-          f"{fp_rns.K_PER_BASE} times: {total} executed a thread; most used "
-          f"{_opcode_mix([op for _, op in body], 8)}")
-    return total
+    body = []
+    for addr, op in ops[last + 1:]:
+        target = re.search(r"\bBRA\s+`?\(?(0x[0-9a-f]+)", op)
+        if not op.startswith("NOP") and not (target and int(target.group(1), 16) == addr):
+            body.append(op)
+    branches = [op for op in body if op.split(None, 1)[0].startswith(("BRA", "BRX", "JMP"))]
+    require(not branches, f"K24's mont_mul is not straight-line code: {branches[:4]}")
+    print(f"sass rns mont_mul a lane: {len(body)} instructions; most used "
+          f"{_opcode_mix(body, 8)}", flush=True)
+    return len(body)
 
 
 # K24's least work, in lane instructions, from the arithmetic an RNS product
-# needs rather than from the kernel's SASS (whose rolled extension loops spend
-# 7-9 instructions a product on constant loads, split 64-bit adds and loop
-# control): a 32 x 32-bit product, or a 64-bit multiply-accumulate, is one
-# instruction (IMAD.WIDE.U32); a word reduced by a 15-bit prime four (Barrett:
-# a multiply-high, a multiply-subtract, a compare, a select); a sum of two
-# residues reduced three (add, subtract, select); a float32 multiply or add one.
+# needs rather than from the kernel's SASS: a 32 x 32-bit product, or a 64-bit
+# multiply-accumulate, is one instruction (IMAD.WIDE.U32); a word reduced by a
+# 15-bit prime four (Barrett: a multiply-high, a multiply-subtract, a compare,
+# a select); a sum of two residues reduced three (add, subtract, select); a
+# float32 multiply or add one.
 RNS_REDUCE, RNS_ADD_MOD = 4, 3
 
 
@@ -1102,60 +1129,139 @@ def rns_least_instructions(op: str) -> int:
     return reduce + (2 * k * mod_mul if op == "mont_mul" else 0)  # mul_wide's 64 products
 
 
-def rns_rows(dev, launches, parts, clocks, err) -> list:
-    """K24's row: its time at the block flush's commonest mont_mul M (and at
-    the gossip flush's, and mont_reduce at each flush's commonest M) on seeded
-    residues, each equal to the plain version's output on every channel, the
-    plain version's time, and the least time: the instructions the op needs
-    (`rns_least_instructions`) x M over the lane issue rate, or 768 bytes an
-    element read and written once (a mont_reduce: 512), the larger. Beside
-    it, `sass_bound_ms`: the kernel's own executed SASS (a mont_mul's, also
-    for mont_reduce, whose instance is not counted apart) x M over the same
-    rate, the floor of the kernel as it is written."""
-    from consensus_specs_tpu_torch.ops import fp_rns as R
-
+def rns_rows(dev, launches, err) -> list:
+    """K24's row: mont_mul at M = 2, 256 and 1,024 and mont_reduce at 256 on
+    seeded residues, each equal to the plain version's output on every
+    channel, the plain version's time, and the least time: the instructions
+    the op needs (`rns_least_instructions`) x M over the lane issue rate, or
+    768 bytes an element read and written once (a mont_reduce: 512), the
+    larger. Beside it, `sass_bound_ms`: the SASS one lane executes a product
+    (`sass_rns_mont_mul`) x 32 lanes x M over the same rate, the floor of the
+    kernel as it is written; and `device_ms`, the kernel's own time a launch
+    from torch.profiler over 20 launches (`ms`, CUDA events around the
+    wrapper's calls, also holds the host's issue time of each launch)."""
     import torch
+
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+    from consensus_specs_tpu_torch.profile_main_path import profile_window
 
     sass = sass_rns_mont_mul()
     least = {name: rns_least_instructions(name) for name in ("mont_mul", "mont_reduce")}
-    print(f"rns least instructions an element: {least} (RNS_REDUCE={RNS_REDUCE}); the kernel's "
-          f"mont_mul executes {sass}", flush=True)
+    print(f"rns least instructions an element: {least} (RNS_REDUCE={RNS_REDUCE}); the kernel "
+          f"executes {sass} a lane, {32 * sass} a warp (an element)", flush=True)
     rng = np.random.default_rng(240)
     rows = {}
-    for part in ("block", "gossip"):
-        for opname, op in (("mont_mul", R.OP_MONT_MUL), ("mont_reduce", R.OP_MONT_REDUCE)):
-            m = clocks[part].commonest(opname)
-            a, b = rns_residues(rng, m, dev), rns_residues(rng, m, dev).flip(0)
-            args = (a, b) if op == R.OP_MONT_MUL else (R.rns_ops(R.OP_MUL_WIDE, a, b),)
-            plain, plain_ms, _ = timed(lambda: R.rns_ops_plain(op, *args))
-            got = R.rns_ops(op, *args)
-            err["rns_ops"] = max(err["rns_ops"], max_abs_err(got, plain))
-            require(torch.equal(got, plain), f"K24 {opname} at M={m} differs from its plain "
-                    "version")
-            nbytes = (3 if op == R.OP_MONT_MUL else 2) * m * 256
-            t_ops, t_bytes = least[opname] * m / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
-            rows[f"{part} {opname}"] = dict(
-                shape=f"{opname} M={m}", ms=time_ms(lambda: R.rns_ops(op, *args), 20),
-                plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
-                sass_bound_ms=1e3 * sass * m / LANE_INSTR_PER_S,
-                calls_in_flush=clocks[part].shapes[(opname, m)])
-    first = rows.pop("block mont_mul")
+    for opname, op, m in (("mont_mul", R.OP_MONT_MUL, 256), ("mont_mul", R.OP_MONT_MUL, 2),
+                          ("mont_mul", R.OP_MONT_MUL, 1024),
+                          ("mont_reduce", R.OP_MONT_REDUCE, 256)):
+        a, b = rns_residues(rng, m, dev), rns_residues(rng, m, dev).flip(0)
+        args = (a, b) if op == R.OP_MONT_MUL else (R.rns_ops(R.OP_MUL_WIDE, a, b),)
+        plain, plain_ms, _ = timed(lambda: R.rns_ops_plain(op, *args))
+        got = R.rns_ops(op, *args)
+        err["rns_ops"] = max(err["rns_ops"], max_abs_err(got, plain))
+        require(torch.equal(got, plain), f"K24 {opname} at M={m} differs from its plain version")
+        nbytes = (3 if op == R.OP_MONT_MUL else 2) * m * 256
+        t_ops, t_bytes = least[opname] * m / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+        _, prof = profile_window(lambda: [R.rns_ops(op, *args) for _ in range(20)], torch)
+        k24 = [r for r in prof if "rns_ops_kernel" in r[0]]
+        rows[f"{opname} M={m}"] = dict(
+            shape=f"{opname} M={m}", ms=time_ms(lambda: R.rns_ops(op, *args), 20),
+            device_ms=1e-3 * sum(r[2] for r in k24) / sum(r[1] for r in k24) if k24 else None,
+            plain_ms=plain_ms, bound_ms=1e3 * max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            sass_bound_ms=1e3 * 32 * sass * m / LANE_INSTR_PER_S)
+    first = rows.pop("mont_mul M=256")
     row = dict(name="rns_ops", route="cuda", source="consensus_specs_tpu_torch/csrc/fp_rns.cu",
                replaces="consensus_specs_tpu/ops/fp_rns.py:320", launches=launches["rns_ops"],
                max_abs_err=err["rns_ops"], bit_equal=err["rns_ops"] == 0.0, library_ms=None,
                library_null_reason="no PyTorch call computes an RNS Montgomery product "
                "(torch._int_mm covers only the base extensions' products)",
-               least_instructions=least, sass_mont_mul=sass, launches_by_op=parts["by_op"],
-               launches_by_part=parts["by_part"], **first, **rows)
+               least_instructions=least, sass_mont_mul_a_lane=sass, **first, **rows)
     row["ms_over_bound"] = row["ms"] / row["bound_ms"]
-    for label, r in [("block mont_mul", first), *rows.items()]:
-        print(f"kernel rns_ops ({label}, {r['shape']}): ms={r['ms']:.5f} "
+    for r in [first, *rows.values()]:
+        print(f"kernel rns_ops ({r['shape']}): ms={r['ms']:.5f} device_ms={r['device_ms']} "
               f"bound_ms={r['bound_ms']:.7f} ({r['bound_by']}) sass_bound_ms="
-              f"{r['sass_bound_ms']:.7f} plain_ms={r['plain_ms']:.3f} calls in the flush "
-              f"{r['calls_in_flush']}", flush=True)
-    print(f"kernel rns_ops: launches={row['launches']} by op {parts['by_op']}", flush=True)
+              f"{r['sass_bound_ms']:.7f} plain_ms={r['plain_ms']:.3f}", flush=True)
+    print(f"kernel rns_ops: launches={row['launches']} on the main path (the RNS flush runs "
+          f"K9-K12's RNS instances and packs on the host)", flush=True)
     return [row]
+
+
+def rns_bls_rows(dev, inputs, launches, err) -> list:
+    """K9-K12's RNS instances at the block flush's shapes (K9 at N = 256, G1
+    affine and G2; K10 on the G2 collapse of those 256; K11 at B = 257; K12's
+    tail at 257), on RNS residues of the flush's own points and seeded
+    scalars: each output equal to the RNS plain version's on every element,
+    the time, the plain version's time (on the card's tensors) and its Fp
+    products (`fp_rns.plain_muls`) on the same inputs; the least time those
+    products x the 3,716 lane instructions a product needs
+    (`rns_least_instructions`) over the lane issue rate, or the bytes, the
+    larger."""
+    import torch
+
+    from consensus_specs_tpu_torch.crypto import bls_torch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    block = inputs[0]
+    cols = ([c.p1 for c in block], [c.q1 for c in block], [c.p2 for c in block],
+            [c.q2 for c in block])
+    B.set_field_backend("rns")
+    try:
+        b, (q1, p1, q2, _) = bls_torch._pack_pairing_args(*cols, dev)
+    finally:
+        B.set_field_backend("limb")
+    zb = bls_torch.zbits_from_ints(np.random.default_rng(4).integers(1, 2**64, b,
+                                                                     dtype=np.uint64), dev)
+    a1, zsig = B.rlc_ladders(p1, q2, zb)
+    whole = torch.tensor([0, b], device=dev)
+    aq = B.point_sums(zsig, whole)
+    mq = torch.cat([q1, aq])
+    mp = torch.cat([a1, B.neg_g1_words(dev, R.NLIMBS)[None]])
+    m = B.miller_loop(mq, mp)
+    least = rns_least_instructions("mont_mul")
+    specs = [
+        ("rlc_ladders_rns", "rlc.cu", "consensus_specs_tpu/ops/bls12_jax.py:782",
+         f"N={b} G1 affine + G2", lambda: B.rlc_ladders(p1, q2, zb),
+         lambda: B.rlc_ladders_plain(p1, q2, zb),
+         (p1.numel() + q2.numel() + zb.numel() + a1.numel() + zsig.numel()) * 4),
+        ("point_sums_rns", "rlc.cu", "consensus_specs_tpu/ops/bls12_jax.py:1014",
+         f"G2 N={b} D=1", lambda: B.point_sums(zsig, whole),
+         lambda: B.point_sums_plain(zsig, whole), (zsig.numel() + aq.numel()) * 4 + 16),
+        ("miller_loop_rns", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:514",
+         f"B={mq.shape[0]}", lambda: B.miller_loop(mq, mp), lambda: B.miller_loop_plain(mq, mp),
+         (mq.numel() + mp.numel() + m.numel()) * 4),
+        ("final_exp_rns", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:611",
+         f"tail B={m.shape[0]}", lambda: B.final_exp_tail(m[:-1], m[-1]),
+         lambda: B.final_exp_tail_plain(m[:-1], m[-1]), (m.numel() + 768 + 1) * 4),
+    ]
+    rows = []
+    with Aside():
+        for name, src, replaces, shape, kernel, plain, nbytes in specs:
+            muls0 = R.plain_muls
+            want, plain_ms, _ = timed(plain)
+            muls = R.plain_muls - muls0
+            got = _outputs(kernel())
+            pairs = [(g, w) for g, w in zip(got, _outputs(want)) if g is not None]
+            err[name] = max(err[name], *(max_abs_err(g, w) for g, w in pairs))
+            require(all(torch.equal(g, w) for g, w in pairs),
+                    f"{name} ({shape}) differs from its plain version at the main path's shape")
+            t_ops, t_bytes = muls * least / LANE_INSTR_PER_S, nbytes / HBM_BYTES_PER_S
+            rows.append(dict(
+                name=name, route="cuda", source=f"consensus_specs_tpu_torch/csrc/{src}",
+                replaces=replaces, shape=shape, ms=time_ms(kernel, 3, warmup=0),
+                plain_ms=plain_ms, fp_muls=muls, bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                launches=launches[name], max_abs_err=err[name], bit_equal=err[name] == 0.0,
+                library_ms=None, library_null_reason="no PyTorch call computes a pairing, a "
+                "curve ladder or a point sum over an RNS field"))
+    for row in rows:
+        row["ms_over_bound"] = row["ms"] / row["bound_ms"]
+        print(f"kernel {row['name']} ({row['shape']}): ms={row['ms']:.5f} "
+              f"launches={row['launches']} bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
+              f"plain_ms={row['plain_ms']:.3f} library_ms=None fp_muls={row['fp_muls']}",
+              flush=True)
+    return rows
 
 
 def msm_main_path(dev, agg_in, kzg_in) -> tuple:
@@ -2682,6 +2788,7 @@ def main(argv=None) -> int:
     check_tree_root_kernel(dev, rng, err)
     check_multiproof_kernels(dev, np.random.default_rng(20), err)
     check_rns_kernel(dev, err)
+    check_rns_bls_kernels(dev, err)
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -2752,7 +2859,7 @@ def main(argv=None) -> int:
           f"{stack['reserved_bytes']} B held by the driver)")
     for name, count in launches.items():
         require(count > 0 or name in BLS_KERNELS + MSM_KERNELS + FC_KERNELS + PROOF_KERNELS
-                + DAS_KERNELS + RNS_KERNELS + MESH_KERNELS,
+                + DAS_KERNELS + RNS_KERNELS + RNS_BLS_KERNELS + MESH_KERNELS,
                 f"the main path never launched {name}")
     branches = {r["branch"] for r in refreshes[1:]}
     require({"masked", "full"} <= branches,
@@ -2908,15 +3015,14 @@ def main(argv=None) -> int:
           f"host; busy share {das_out['das_recover_busy_share']:.4f}) busy share "
           f"{das_out['das_busy_share']:.4f} launches={das_parts}", flush=True)
 
-    # 5h. phase 5's BLS flushes over the RNS field backend (K24)
-    rns_out, rns_launches, rns_parts, rns_clocks = rns_main_path(dev, bls_in, bls_out)
+    # 5h. phase 5's BLS flushes over the RNS field backend (K9-K12's RNS instances)
+    rns_out, rns_launches, rns_parts = rns_main_path(dev, bls_in, bls_out)
     print("rns main path: " + " ".join(f"{k}={'not measured' if v is None else f'{v:.4f}'}"
                                        for k, v in rns_out.items()
                                        if k.endswith(("_ms", "_share")))
           + f" first flush {rns_out['block_first_host_costs']} warm block flush "
           f"{rns_out['block_host_costs']}"
-          + f" launches={ {k: v for k, v in rns_launches.items() if v} } K24 by op="
-          f"{rns_parts['by_op']} by part={rns_parts['by_part']}", flush=True)
+          + f" launches={ {k: v for k, v in rns_launches.items() if v} }", flush=True)
 
     # 5i. the multi-device path: world size 1 on NCCL, 4 gloo ranks on this
     # card, the (2, 2) mesh
@@ -3082,7 +3188,8 @@ def main(argv=None) -> int:
     with Aside():
         rows += das_rows(das_inputs, das_parts, err, sass_fr_mul, bound)
     with Aside():
-        rows += rns_rows(dev, rns_launches, rns_parts, rns_clocks, err)
+        rows += rns_rows(dev, rns_launches, err)
+    rows += rns_bls_rows(dev, bls_in, rns_launches, err)
     with Aside():
         rows += mesh_rows(dev, mesh_in, mesh_launches, err, sass_mul, bound)
     card = card_line()

@@ -329,7 +329,7 @@ def _device_check(p1s, q1s, p2s, q2s, device) -> np.ndarray:
     """Per item e(p1, q1)·e(p2, q2) == 1, padded to the bucket."""
     n = len(p1s)
     _, args = _pack_pairing_args(p1s, q1s, p2s, q2s, device)
-    return K.current_field().check_batch(*args).cpu().numpy()[:n]
+    return K.pairing_check_batch(*args).cpu().numpy()[:n]
 
 
 def _device_check_all(p1s, q1s, p2s, q2s, device) -> bool:
@@ -338,7 +338,7 @@ def _device_check_all(p1s, q1s, p2s, q2s, device) -> bool:
     where messages repeat, else N + 1."""
     assert all(p2 is _NEG_G1 for p2 in p2s), "the randomized check needs p2 == -G1"
     n = len(p1s)
-    check = K.current_field().check_rlc
+    check = K.pairing_check_rlc
     if len(set(q1s)) < n:
         b_n, b_d, (q1, p1, q2), seg_ids = _pack_grouped_args(p1s, q1s, q2s, device)
         ok = check(q1, p1, q2, random_zbits(b_n, device), seg_ids)

@@ -1,6 +1,7 @@
 // G1 (over Fp) and G2 (on the twist, over Fp2) in Jacobian coordinates, one
-// thread a point, one template for both: BLS12-381 and its twist both have
-// a = 0, and b never enters the add or double formulas.
+// template for both and for either base field (one thread a point over the
+// limb field, one warp over RNS): BLS12-381 and its twist both have a = 0,
+// and b never enters the add or double formulas.
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py `g1_double` :641, `g1_add`
 // :661, `g2_double`/`g2_add` :892-956, `g1_scalar_mul_batch` :782 and
@@ -11,7 +12,8 @@
 // exactly as the selects decide: Z1 = 0 gives p2, else Z2 = 0 gives p1;
 // equal points (H = r = 0) give the double of p1; opposite points (H = 0,
 // r != 0) keep the add's X and Y with Z = 0. The window gathers reach all of
-// them (digit 0 is the point at infinity).
+// them (digit 0 is the point at infinity). Under the RNS field every such
+// test is a warp-wide vote (fp_rns.cuh), so the branches stay uniform.
 #pragma once
 #include "tower.cuh"
 
@@ -20,23 +22,61 @@ struct jac {
     F x, y, z;
 };
 
-// the field's operations under one name for both fields
-BLS_INLINE void fmul(fp &r, const fp &a, const fp &b) { fp_mul(r, a, b); }
-BLS_INLINE void fmul(fp2 &r, const fp2 &a, const fp2 &b) { f2_mul(r, a, b); }
-BLS_INLINE void fsqr(fp &r, const fp &a) { fp_mul(r, a, a); }
-BLS_INLINE void fsqr(fp2 &r, const fp2 &a) { f2_sqr(r, a); }
-BLS_INLINE void fadd(fp &r, const fp &a, const fp &b) { fp_add(r, a, b); }
-BLS_INLINE void fadd(fp2 &r, const fp2 &a, const fp2 &b) { f2_add(r, a, b); }
-BLS_INLINE void fsub(fp &r, const fp &a, const fp &b) { fp_sub(r, a, b); }
-BLS_INLINE void fsub(fp2 &r, const fp2 &a, const fp2 &b) { f2_sub(r, a, b); }
-BLS_INLINE void finv(fp &r, const fp &a) { fp_inv(r, a); }
-BLS_INLINE void finv(fp2 &r, const fp2 &a) { f2_inv(r, a); }
-BLS_INLINE bool fis_zero(const fp &a) { return fp_is_zero(a); }
-BLS_INLINE bool fis_zero(const fp2 &a) { return f2_is_zero(a); }
-BLS_INLINE void fset_zero(fp &r) { fp_set_zero(r); }
-BLS_INLINE void fset_zero(fp2 &r) { f2_set_zero(r); }
-BLS_INLINE void fset_one(fp &r) { fp_set_one(r); }
-BLS_INLINE void fset_one(fp2 &r) { f2_set_one(r); }
+// the field's operations under one name: a base field (fp, rns_w) or Fp2
+// over it
+template <typename F>
+BLS_INLINE void fmul(F &r, const F &a, const F &b) { fp_mul(r, a, b); }
+template <typename F>
+BLS_INLINE void fmul(fp2_t<F> &r, const fp2_t<F> &a, const fp2_t<F> &b) { f2_mul(r, a, b); }
+template <typename F>
+BLS_INLINE void fsqr(F &r, const F &a) { fp_mul(r, a, a); }
+template <typename F>
+BLS_INLINE void fsqr(fp2_t<F> &r, const fp2_t<F> &a) { f2_sqr(r, a); }
+template <typename F>
+BLS_INLINE void fadd(F &r, const F &a, const F &b) { fp_add(r, a, b); }
+template <typename F>
+BLS_INLINE void fadd(fp2_t<F> &r, const fp2_t<F> &a, const fp2_t<F> &b) { f2_add(r, a, b); }
+template <typename F>
+BLS_INLINE void fsub(F &r, const F &a, const F &b) { fp_sub(r, a, b); }
+template <typename F>
+BLS_INLINE void fsub(fp2_t<F> &r, const fp2_t<F> &a, const fp2_t<F> &b) { f2_sub(r, a, b); }
+template <typename F>
+BLS_INLINE void finv(F &r, const F &a) { fp_inv(r, a); }
+template <typename F>
+BLS_INLINE void finv(fp2_t<F> &r, const fp2_t<F> &a) { f2_inv(r, a); }
+template <typename F>
+BLS_INLINE bool fis_zero(const F &a) { return fp_is_zero(a); }
+template <typename F>
+BLS_INLINE bool fis_zero(const fp2_t<F> &a) { return f2_is_zero(a); }
+template <typename F>
+BLS_INLINE void fset_zero(F &r) { fp_set_zero(r); }
+template <typename F>
+BLS_INLINE void fset_zero(fp2_t<F> &r) { f2_set_zero(r); }
+template <typename F>
+BLS_INLINE void fset_one(F &r) { fp_set_one(r); }
+template <typename F>
+BLS_INLINE void fset_one(fp2_t<F> &r) { f2_set_one(r); }
+template <typename F>
+BLS_INLINE void fload(F &r, const uint32_t *p) { fp_load(r, p); }
+template <typename F>
+BLS_INLINE void fload(fp2_t<F> &r, const uint32_t *p) {
+    fp_load(r.c0, p);
+    fp_load(r.c1, p + F::WORDS);
+}
+template <typename F>
+BLS_INLINE void fstore(uint32_t *p, const F &x) { fp_store(p, x); }
+template <typename F>
+BLS_INLINE void fstore(uint32_t *p, const fp2_t<F> &x) {
+    fp_store(p, x.c0);
+    fp_store(p + F::WORDS, x.c1);
+}
+
+// threads a block of one-item units: 64 threads over the limb field, four
+// warps over RNS (K9, K11, K12's batch mode)
+template <typename B>
+__host__ __device__ constexpr int item_threads() {
+    return B::LANES == 1 ? 64 : 4 * B::LANES;
+}
 
 template <typename F>
 BLS_INLINE void jac_set_inf(jac<F> &r) {
@@ -120,22 +160,25 @@ BLS_NOINLINE void jac_add(jac<F> &r, const jac<F> &p1, const jac<F> &p2) {
     r.z = Z1Z2;
 }
 
-// One block's sum of n entries (K10's segments, K13's windows): thread t adds
-// the entries i = t, t + T, ... (T = blockDim.x, a power of two), where
-// `entry(i, e)` loads entry i into e and says whether it is there at all;
-// then the T shares meet in a tree in the shared `part` (T points). Every
-// thread returns with the sum in part[0].
+// One block's sum of n entries (K10's segments, K13's windows) by units: a
+// unit is a thread over the limb field, a warp over RNS (L threads). Unit u
+// adds the entries i = u, u + U, ... (U = blockDim.x / L, a power of two),
+// where `entry(i, e)` loads entry i into e and says whether it is there at
+// all; then the U shares meet in a tree in the shared `part` (U points, each
+// L lanes wide): at each level unit u < half takes unit u + half. Every
+// thread returns with the sum in part[0 .. L).
 template <typename F, typename Entry>
 BLS_INLINE void block_tree_sum(jac<F> *part, long long n, Entry entry) {
-    int t = threadIdx.x;
+    constexpr int L = lanes_of<F>::value;
+    const int u = threadIdx.x / L, lane = threadIdx.x % L, units = blockDim.x / L;
     jac<F> acc, e;
     jac_set_inf(acc);
-    for (long long i = t; i < n; i += blockDim.x)
+    for (long long i = u; i < n; i += units)
         if (entry(i, e)) jac_add(acc, acc, e);
-    part[t] = acc;
+    part[u * L + lane] = acc;
     __syncthreads();
-    for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-        if (t < half) jac_add(part[t], part[t], part[t + half]);
+    for (int half = units / 2; half > 0; half >>= 1) {
+        if (u < half) jac_add(part[u * L + lane], part[u * L + lane], part[(u + half) * L + lane]);
         __syncthreads();
     }
 }

@@ -29,6 +29,8 @@
 
 struct fp {
     uint32_t w[12];
+    static constexpr int LANES = 1;   // threads an element
+    static constexpr int WORDS = 12;  // words an element in memory
 };
 
 BLS_INLINE void fp_set_zero(fp &r) {
@@ -169,3 +171,17 @@ BLS_NOINLINE void fp_pow_table(fp &r, const fp &a, int which) {
 BLS_INLINE void fp_inv(fp &r, const fp &a) { fp_pow_table(r, a, 0); }
 
 BLS_INLINE void fp_sqrt_candidate(fp &r, const fp &a) { fp_pow_table(r, a, 1); }
+
+// an element in memory: its twelve words
+BLS_INLINE void fp_load(fp &x, const uint32_t *p) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) x.w[j] = p[j];
+}
+
+BLS_INLINE void fp_store(uint32_t *p, const fp &x) {
+#pragma unroll
+    for (int j = 0; j < 12; ++j) p[j] = x.w[j];
+}
+
+// the limb field keeps its constants in constant memory: nothing to load
+BLS_INLINE void field_prologue(fp *) {}

@@ -1,4 +1,8 @@
-// The optimal-ate pairing on the card, one thread a pairing.
+// The optimal-ate pairing on the card, templates over the base field: one
+// thread a pairing over the limb field (csrc/fp.cuh), one warp a pairing
+// over RNS (csrc/fp_rns.cuh, `_rns` entry points). Each launch takes its
+// geometry from the field's lanes an element; a unit below is a thread
+// (limb) or a warp (RNS).
 //
 // K11 miller_loop: f_{|x|,Q}(P), conjugated (x < 0), per (Q, P) pair: Q
 // affine on the twist (B, 2, 2, 12), P affine (B, 2, 12) -> (B, 12, 12).
@@ -9,16 +13,16 @@
 //
 // K12 final_exp, the final exponentiation (:611, JAX's hard-part chain, so
 // the output is the cube of the reduced pairing) and `f12_is_one` (:628):
-// - mode 1 (batch): per item, f = m1 (times m2 where given), its final
-//   exponentiation and is_one (`pairing_cube_batch` :762,
+// - mode 1 (batch): per item (a unit each), f = m1 (times m2 where given),
+//   its final exponentiation and is_one (`pairing_cube_batch` :762,
 //   `pairing_check_batch` :768);
-// - mode 0 (tail): one block tree-multiplies the n values in place
-//   (`f12_tree_product`), then thread 0 exponentiates the product
+// - mode 0 (tail): one block's units tree-multiply the n values in place
+//   (`f12_tree_product`), then unit 0 exponentiates the product
 //   (`f12_prod_reduce` :1061, `rlc_tail` :1219).
 //
-// K25 f12_product: the same one-block tree product of B Fp12 values
-// (B, 12, 12), in place, and no exponentiation: the Fp12 partial of a mesh
-// rank's shard and the fold of the gathered partials
+// K25 f12_product (limb field only): the same one-block tree product of B
+// Fp12 values (B, 12, 12), in place, and no exponentiation: the Fp12
+// partial of a mesh rank's shard and the fold of the gathered partials
 // (`f12_prod_reduce` as parallel/collectives.py:147, :153, :236 use it).
 // K12's tail and K25 call one device function, `f12_tree_product`, so the
 // two products cannot drift apart. The order (i with i + ceil(k/2)) is the
@@ -26,10 +30,11 @@
 // the same canonical value.
 //
 // Bound: operations. A Miller loop is about 7,700 Fp products and a final
-// exponentiation about 9,300 in one thread; a block flush runs 257 Miller
-// loops (257 of the card's 16,896 lanes) and one exponentiation in one
-// thread, so both are latency-bound far from the operation rate. The bit
-// loops stay rolled; the tower functions are called, not inlined.
+// exponentiation about 9,300 in one unit; a block flush runs 257 Miller
+// loops (257 of the card's 16,896 lanes under the limb field) and one
+// exponentiation in one unit, so both are latency-bound far from the
+// operation rate. The bit loops stay rolled; the tower functions are
+// called, not inlined. Under RNS an Fp12 is 24 registers a lane.
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
@@ -37,9 +42,10 @@
 
 // One Miller doubling of T with its line (l0, l3, l5) at P = (xp, yp):
 // l0 = 2YZ^3·xi·yp, l3 = 3X^3 - 2Y^2, l5 = -3X^2 Z^2·xp
-__device__ __noinline__ void dbl_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, const fp &xp,
-                                      const fp &yp) {
-    fp2 A, B, Zsq, E, D, YZ, Zcu, EX, EZsq, Fq, C, X3, Y3, t;
+template <typename F>
+__device__ __noinline__ void dbl_step(jac<fp2_t<F>> &T, fp2_t<F> &l0, fp2_t<F> &l3, fp2_t<F> &l5,
+                                      const F &xp, const F &yp) {
+    fp2_t<F> A, B, Zsq, E, D, YZ, Zcu, EX, EZsq, Fq, C, X3, Y3, t;
     f2_sqr(A, T.x);
     f2_sqr(B, T.y);
     f2_sqr(Zsq, T.z);
@@ -77,9 +83,11 @@ __device__ __noinline__ void dbl_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, co
 
 // Mixed addition T + Q with its line: H = xq Z^2 - X, r = yq Z^3 - Y,
 // l0 = HZ·xi·yp, l3 = r·xq - HZ·yq, l5 = -r·xp
-__device__ __noinline__ void add_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, const fp2 &xq,
-                                      const fp2 &yq, const fp &xp, const fp &yp) {
-    fp2 Zsq, U, Zcu, S, H, R, Hsq, Rsq, Hcu, V, HZ, X3, Y3, t, u;
+template <typename F>
+__device__ __noinline__ void add_step(jac<fp2_t<F>> &T, fp2_t<F> &l0, fp2_t<F> &l3, fp2_t<F> &l5,
+                                      const fp2_t<F> &xq, const fp2_t<F> &yq, const F &xp,
+                                      const F &yp) {
+    fp2_t<F> Zsq, U, Zcu, S, H, R, Hsq, Rsq, Hcu, V, HZ, X3, Y3, t, u;
     f2_sqr(Zsq, T.z);
     f2_mul(U, xq, Zsq);
     f2_mul(Zcu, T.z, Zsq);
@@ -110,13 +118,14 @@ __device__ __noinline__ void add_step(jac<fp2> &T, fp2 &l0, fp2 &l3, fp2 &l5, co
     T.z = HZ;
 }
 
-__device__ __noinline__ void miller(fp12 &f, const fp2 &xq, const fp2 &yq, const fp &xp,
-                                    const fp &yp) {
-    jac<fp2> T;
+template <typename F>
+__device__ __noinline__ void miller(fp12_t<F> &f, const fp2_t<F> &xq, const fp2_t<F> &yq,
+                                    const F &xp, const F &yp) {
+    jac<fp2_t<F>> T;
     T.x = xq;
     T.y = yq;
     f2_set_one(T.z);
-    fp2 l0, l3, l5;
+    fp2_t<F> l0, l3, l5;
     f12_set_one(f);
 #pragma unroll 1
     for (int i = 62; i >= 0; --i) {  // the bits of |x| below its top one
@@ -131,62 +140,79 @@ __device__ __noinline__ void miller(fp12 &f, const fp2 &xq, const fp2 &yq, const
     f12_conj(f, f);
 }
 
-__global__ void miller_loop_kernel(const fp2 *__restrict__ q, const fp *__restrict__ p,
-                                   uint32_t *out, long long n) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+template <typename B>
+__global__ void __launch_bounds__(item_threads<B>())
+    miller_loop_kernel(const uint32_t *__restrict__ q, const uint32_t *__restrict__ p,
+                       uint32_t *out, long long n) {
+    field_prologue((B *)nullptr);
+    constexpr int W = B::WORDS;
+    long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B::LANES;
     if (i >= n) return;
-    fp2 xq = q[2 * i], yq = q[2 * i + 1];
-    fp xp = p[2 * i], yp = p[2 * i + 1];
-    fp12 f;
+    fp2_t<B> xq, yq;
+    B xp, yp;
+    fload(xq, q + (2 * i) * 2 * W);
+    fload(yq, q + (2 * i + 1) * 2 * W);
+    fload(xp, p + (2 * i) * W);
+    fload(yp, p + (2 * i + 1) * W);
+    fp12_t<B> f;
     miller(f, xq, yq, xp, yp);
-    f12_store(out + 144 * i, f);
+    f12_store(out + 12 * W * i, f);
 }
 
 constexpr int TAIL_THREADS = 256;
 
 // Tree-multiplies the k Fp12 values m[0..k) into m[0], in place: at each
-// level value i takes value i + ceil(k/2). Every thread of the block calls.
+// level value i takes value i + ceil(k/2), unit u the products i = u, u + U,
+// ... (U units). Every thread of the block calls.
+template <typename B>
 __device__ void f12_tree_product(uint32_t *m, long long k) {
-    const int t = threadIdx.x;
+    constexpr int W = 12 * B::WORDS;
+    const int u = threadIdx.x / B::LANES, units = blockDim.x / B::LANES;
     while (k > 1) {
         long long half = (k + 1) / 2;
-        for (long long i = t; i < k - half; i += blockDim.x) {
-            fp12 a, b;
-            f12_load(a, m + 144 * i);
-            f12_load(b, m + 144 * (i + half));
+        for (long long i = u; i < k - half; i += units) {
+            fp12_t<B> a, b;
+            f12_load(a, m + W * i);
+            f12_load(b, m + W * (i + half));
             f12_mul(a, a, b);
-            f12_store(m + 144 * i, a);
+            f12_store(m + W * i, a);
         }
         __syncthreads();
         k = half;
     }
 }
 
-__global__ void f12_product_kernel(uint32_t *m, long long n) { f12_tree_product(m, n); }
+__global__ void f12_product_kernel(uint32_t *m, long long n) { f12_tree_product<fp>(m, n); }
 
-__global__ void final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok,
-                                 long long n, int mode) {
+template <typename B>
+__global__ void __launch_bounds__(TAIL_THREADS)
+    final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok, long long n,
+                     int mode) {
+    field_prologue((B *)nullptr);
+    constexpr int W = 12 * B::WORDS;
     if (mode == 1) {
-        long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+        long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B::LANES;
         if (i >= n) return;
-        fp12 f, g;
-        f12_load(f, m + 144 * i);
+        fp12_t<B> f, g;
+        f12_load(f, m + W * i);
         if (m2) {
-            f12_load(g, m2 + 144 * i);
+            f12_load(g, m2 + W * i);
             f12_mul(f, f, g);
         }
         final_exponentiation(f, f);
-        f12_store(out + 144 * i, f);
-        ok[i] = f12_is_one(f) ? 1 : 0;
+        f12_store(out + W * i, f);
+        bool one = f12_is_one(f);
+        if (threadIdx.x % B::LANES == 0) ok[i] = one ? 1 : 0;
         return;
     }
-    f12_tree_product(m, n);
-    if (threadIdx.x == 0) {
-        fp12 f;
+    f12_tree_product<B>(m, n);
+    if (threadIdx.x < B::LANES) {
+        fp12_t<B> f;
         f12_load(f, m);
         final_exponentiation(f, f);
         f12_store(out, f);
-        ok[0] = f12_is_one(f) ? 1 : 0;
+        bool one = f12_is_one(f);
+        if (threadIdx.x == 0) ok[0] = one ? 1 : 0;
     }
 }
 
@@ -200,34 +226,55 @@ extern "C" int bls_stack_limit(void *out, long long n, void *stream) {
     return e;
 }
 
-extern "C" int miller_loop(const void *q, const void *p, void *out, long long n, void *stream) {
+template <typename B>
+static int miller_entry(const void *q, const void *p, void *out, long long n, void *stream) {
     int e = ensure_stack();
     if (e) return e;
     if (n > 0) {
-        const int threads = 64;
-        miller_loop_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                             (cudaStream_t)stream>>>((const fp2 *)q, (const fp *)p,
-                                                     (uint32_t *)out, n);
+        const int threads = item_threads<B>(), per_block = threads / B::LANES;
+        miller_loop_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), threads, 0,
+                                (cudaStream_t)stream>>>((const uint32_t *)q, (const uint32_t *)p,
+                                                        (uint32_t *)out, n);
     }
     return (int)cudaGetLastError();
 }
 
-extern "C" int final_exp(void *m, const void *m2, void *out, void *ok, long long n,
-                         long long mode, void *stream) {
+template <typename B>
+static int final_exp_entry(void *m, const void *m2, void *out, void *ok, long long n,
+                           long long mode, void *stream) {
     int e = ensure_stack();
     if (e) return e;
     if (n > 0) {
         cudaStream_t s = (cudaStream_t)stream;
         if (mode == 1) {
-            const int threads = 64;
-            final_exp_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0, s>>>(
+            const int threads = item_threads<B>(), per_block = threads / B::LANES;
+            final_exp_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), threads, 0, s>>>(
                 (uint32_t *)m, (const uint32_t *)m2, (uint32_t *)out, (int *)ok, n, 1);
         } else {
-            final_exp_kernel<<<1, TAIL_THREADS, 0, s>>>((uint32_t *)m, nullptr, (uint32_t *)out,
-                                                        (int *)ok, n, 0);
+            final_exp_kernel<B><<<1, TAIL_THREADS, 0, s>>>((uint32_t *)m, nullptr,
+                                                           (uint32_t *)out, (int *)ok, n, 0);
         }
     }
     return (int)cudaGetLastError();
+}
+
+extern "C" int miller_loop(const void *q, const void *p, void *out, long long n, void *stream) {
+    return miller_entry<fp>(q, p, out, n, stream);
+}
+
+extern "C" int miller_loop_rns(const void *q, const void *p, void *out, long long n,
+                               void *stream) {
+    return miller_entry<rns_w>(q, p, out, n, stream);
+}
+
+extern "C" int final_exp(void *m, const void *m2, void *out, void *ok, long long n,
+                         long long mode, void *stream) {
+    return final_exp_entry<fp>(m, m2, out, ok, n, mode, stream);
+}
+
+extern "C" int final_exp_rns(void *m, const void *m2, void *out, void *ok, long long n,
+                             long long mode, void *stream) {
+    return final_exp_entry<rns_w>(m, m2, out, ok, n, mode, stream);
 }
 
 // K25: the product of the n Fp12 values of m (n, 12, 12), in place into

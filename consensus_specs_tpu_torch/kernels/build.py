@@ -22,9 +22,10 @@ directory that cannot be made, an nvcc that cannot run, a failed
 `ctypes.CDLL`) becomes a KernelError too: the retry policy would otherwise
 class an OSError as a device failure.
 
-`LAUNCHES` counts kernel launches per kernel name: each wrapper adds one
-where it launches its kernel, so a run can show that its path went through
-the kernels (`reset_launches()` before, read after).
+`LAUNCHES` counts kernel launches per kernel name (K9-K12's RNS instances
+apart, as `<name>_rns`): each wrapper adds one where it launches its
+kernel, so a run can show that its path went through the kernels
+(`reset_launches()` before, read after).
 """
 from __future__ import annotations
 
@@ -50,7 +51,8 @@ LAUNCHES: dict[str, int] = {"sha256_64b": 0, "validator_roots": 0, "epoch_sweep"
                             "fc_ancestors": 0, "fc_vote_weights": 0, "fc_subtree": 0,
                             "fc_head_walk": 0, "tree_root_batch": 0, "multiproof_heap": 0,
                             "multiproof_siblings": 0, "fr_ntt": 0, "fr_ops": 0, "rns_ops": 0,
-                            "epoch_combine": 0, "f12_product": 0}
+                            "epoch_combine": 0, "f12_product": 0, "rlc_ladders_rns": 0,
+                            "point_sums_rns": 0, "miller_loop_rns": 0, "final_exp_rns": 0}
 
 
 class KernelError(RuntimeError):

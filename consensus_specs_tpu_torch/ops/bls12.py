@@ -29,9 +29,10 @@ is not free is where the JAX package's values depend on a representative:
   selects; the plain version computes each case only on its rows, so its
   product count is what this data needs.
 
-Kernels (csrc/rlc.cu, csrc/pairing.cu, csrc/msm.cu; one thread an item, the
-field in csrc/fp.cuh, the towers in csrc/tower.cuh, the curves in
-csrc/curve.cuh):
+Kernels (csrc/rlc.cu, csrc/pairing.cu, csrc/msm.cu; the towers in
+csrc/tower.cuh and the curves in csrc/curve.cuh are templates over the base
+field: the limb field of csrc/fp.cuh, one thread an item, or the RNS field
+of csrc/fp_rns.cuh, one warp an item, for K9-K12):
 - K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
   (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
   in the same thread where asked (:868);
@@ -50,15 +51,29 @@ csrc/curve.cuh):
 The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
 segment; [z]·(-G1) (`g1_fixed_mul_neg_g1` :854) is K9 over -G1.
 Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
-CPU tensors.
+CPU tensors. K9-K12's wrappers take either field's elements, told apart by
+their width: 12 Montgomery words (the limb instance) or 64 RNS residues
+(ops/fp_rns.py; the `_rns` entry points, counted apart in build.LAUNCHES).
 
 The field of the BLS flush (JAX's switch, :55-64): `set_field_backend("limb")`
-(the default) runs the randomized check and the per-item check on K9-K12
-over this module's field; `set_field_backend("rns")` runs them through
-ops/bls12_field.py over the RNS field (ops/fp_rns.py, kernel K24), and
-crypto/bls_torch.py packs RNS residues for it. Neither backend runs the
-other's kernels. The key aggregation, the subgroup check and the MSM run on
-K10, K13 and K14 under either.
+(the default) runs the randomized check and the per-item check on K9-K12's
+limb instances; `set_field_backend("rns")` runs the same composition on
+their RNS instances, crypto/bls_torch.py packing RNS residues for it (on the
+host, `bls12_field.pack_mont`). Neither backend runs the other's kernels.
+The key aggregation, the subgroup check and the MSM run on K10, K13 and K14
+over the limb field under either.
+
+The plain versions take their few field primitives (add, sub, neg, mul,
+inverse, the zero and one tests, constants) from the field of the values
+they are given, told apart by the trailing dim (`plain_field`): sixteen-bit
+limbs (..., 24) int64, canonical, or RNS residues (..., 64) int32 through
+ops/fp_rns.rns_ops_plain (K24's plain version). Over limbs any correct
+formula gives the kernels' words; over RNS a value's residues depend on the
+integers fed to each Montgomery product, so the formulas here feed every
+product the same sums and differences as csrc/tower.cuh and csrc/curve.cuh
+and visit the points in the kernels' order: the RNS plain version is
+bit-equal to the RNS kernels (the card-only tests and chip_smoke.py hold
+it).
 """
 from __future__ import annotations
 
@@ -100,19 +115,19 @@ miller_loop_items = 0  # Miller loops run through `miller_loop`, kernel or plain
 
 class FieldBackend(NamedTuple):
     """One field of the BLS flush, over this module's packed layout (Q
-    (B, 2, 2, width), P (B, 2, width), scalars (B, 2) int32 words)."""
+    (B, 2, 2, width), P (B, 2, width), scalars (B, 2) int32 words). The
+    checks (`pairing_check_batch`, `pairing_check_rlc`) serve both fields:
+    they tell them apart by the width of the values they are given."""
     width: int        # int32 words an Fp element
     pack: Callable    # (canonical ints, device) -> (n, width) Montgomery form
-    check_batch: Callable  # (q1, p1, q2, p2) -> (B,) bool, e(P1, Q1)·e(P2, Q2) == 1
-    check_rlc: Callable    # (q1, p1, q2, zbits, seg_ids=None) -> 0-d bool, P2 = -G1
 
 
 _FIELD = "limb"
 
 
 def set_field_backend(name: str) -> None:
-    """Select the BLS flush's field: "limb" (K9-K12) or "rns" (K24 under
-    ops/bls12_field.py). An unknown name raises KeyError."""
+    """Select the BLS flush's field: "limb" or "rns" (K9-K12's limb or RNS
+    instances). An unknown name raises KeyError."""
     global _FIELD
     if name not in FIELD_BACKENDS:
         raise KeyError(f"unknown field backend {name!r}; one of {sorted(FIELD_BACKENDS)}")
@@ -124,7 +139,7 @@ def field_backend() -> str:
 
 
 def current_field() -> FieldBackend:
-    """The selected backend's packing and checks."""
+    """The selected backend's width and packing."""
     return FIELD_BACKENDS[_FIELD]
 
 
@@ -171,69 +186,173 @@ def _limb_const(rows, like: torch.Tensor) -> torch.Tensor:
     return to_limbs(words).reshape(*np.asarray(rows, dtype=object).shape, NLIMBS).to(like.device)
 
 
-# --- Fp2 = Fp[u]/(u^2 + 1): (..., 2, 24) ---------------------------------------
+# --- the plain versions' base field ----------------------------------------------
+
+
+class _LimbField:
+    """Sixteen-bit limbs (..., 24) int64, every value canonical (ops/fp.py)."""
+    words = NWORDS  # int32 words an element at the kernels' boundary
+    units = 64      # K10's units a block (csrc/rlc.cu SUM_THREADS)
+    add, sub, neg = staticmethod(fp_add), staticmethod(fp_sub), staticmethod(fp_neg)
+    mul, sqr, inv = staticmethod(fp_mul), staticmethod(fp_sqr), staticmethod(fp_inv)
+    is_zero, is_one = staticmethod(fp_is_zero), staticmethod(fp.fp_is_one_mont)
+    to_plain, from_plain = staticmethod(to_limbs), staticmethod(to_words)
+
+    @staticmethod
+    def one(like):
+        return fp.const_limbs(fp.R_MOD_P, like)
+
+    @staticmethod
+    def const(rows, like):
+        return _limb_const(rows, like)
+
+
+def _rns(op, *xs):
+    """`fp_rns.rns_ops_plain` over any (broadcast) leading shape."""
+    xs = torch.broadcast_tensors(*xs)
+    shape = xs[0].shape
+    out = fp_rns.rns_ops_plain(op, *(x.reshape(-1, fp_rns.NLIMBS) for x in xs))
+    return out.reshape(shape if out.dim() == 2 else shape[:-1])
+
+
+def _same(x):
+    return x
+
+
+class _RnsField:
+    """RNS residues (..., 64) int32, redundant (ops/fp_rns.py), through K24's
+    plain version."""
+    words = fp_rns.NLIMBS
+    units = 16  # K10's units a block (csrc/rlc.cu SUM_WARPS)
+    to_plain = from_plain = staticmethod(_same)
+
+    @staticmethod
+    def add(a, b):
+        return _rns(fp_rns.OP_ADD, a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return _rns(fp_rns.OP_SUB, a, b)
+
+    @staticmethod
+    def neg(a):
+        return _rns(fp_rns.OP_NEG, a)
+
+    @staticmethod
+    def mul(a, b):
+        return _rns(fp_rns.OP_MONT_MUL, a, b)
+
+    @staticmethod
+    def sqr(a):
+        return _rns(fp_rns.OP_MONT_MUL, a, a)
+
+    @staticmethod
+    def inv(a):
+        return _rns(fp_rns.OP_POW_INV, a)
+
+    @staticmethod
+    def is_zero(a):
+        return _rns(fp_rns.OP_IS_ZERO, a)
+
+    @staticmethod
+    def is_one(a):
+        return _rns(fp_rns.OP_IS_ONE, a)
+
+    @staticmethod
+    def one(like):
+        return torch.from_numpy(fp_rns.ONE_MONT).to(like.device)
+
+    @staticmethod
+    def const(rows, like):
+        shape = np.asarray(rows, dtype=object).shape
+        flat = np.asarray(rows, dtype=object).reshape(-1)
+        return torch.from_numpy(fp_rns.ints_to_mont_batch(flat)).reshape(
+            *shape, fp_rns.NLIMBS).to(like.device)
+
+
+def plain_field(x):
+    """The plain field of a plain value, by its trailing dim: RNS residues
+    (64) or limbs (24)."""
+    return _RnsField if x.shape[-1] == fp_rns.NLIMBS else _LimbField
+
+
+def word_field(width: int):
+    """The plain field of the kernels' elements of `width` int32 words (12 or
+    64); anything else raises ValueError."""
+    if width == NWORDS:
+        return _LimbField
+    if width == fp_rns.NLIMBS:
+        return _RnsField
+    raise ValueError(f"an Fp element is {NWORDS} Montgomery words or {fp_rns.NLIMBS} RNS "
+                     f"residues, not {width}")
+
+
+# --- Fp2 = Fp[u]/(u^2 + 1): (..., 2, w) ------------------------------------------
 
 
 def f2_add(x, y):
-    return fp_add(x, y)
+    return plain_field(x).add(x, y)
 
 
 def f2_sub(x, y):
-    return fp_sub(x, y)
+    return plain_field(x).sub(x, y)
 
 
 def f2_neg(x):
-    return fp_neg(x)
+    return plain_field(x).neg(x)
 
 
 def f2_conj(x):
-    return torch.stack([x[..., 0, :], fp_neg(x[..., 1, :])], -2)
+    return torch.stack([x[..., 0, :], plain_field(x).neg(x[..., 1, :])], -2)
 
 
 def f2_mul(x, y):
     """Karatsuba: 3 Fp products in one stacked call."""
+    F = plain_field(x)
     x, y = torch.broadcast_tensors(x, y)
-    s = fp_add(torch.stack([x[..., 0, :], y[..., 0, :]]), torch.stack([x[..., 1, :], y[..., 1, :]]))
-    m = fp_mul(torch.stack([x[..., 0, :], x[..., 1, :], s[0]], -2),
-               torch.stack([y[..., 0, :], y[..., 1, :], s[1]], -2))
+    s = F.add(torch.stack([x[..., 0, :], y[..., 0, :]]), torch.stack([x[..., 1, :], y[..., 1, :]]))
+    m = F.mul(torch.stack([x[..., 0, :], x[..., 1, :], s[0]], -2),
+              torch.stack([y[..., 0, :], y[..., 1, :], s[1]], -2))
     ac, bd, t = m.unbind(-2)
-    d = fp_sub(torch.stack([ac, t], -2), torch.stack([bd, ac], -2))
-    return torch.stack([d[..., 0, :], fp_sub(d[..., 1, :], bd)], -2)
+    d = F.sub(torch.stack([ac, t], -2), torch.stack([bd, ac], -2))
+    return torch.stack([d[..., 0, :], F.sub(d[..., 1, :], bd)], -2)
 
 
 def f2_sqr(x):
     """(a+b)(a-b) + 2ab·u: 2 Fp products."""
+    F = plain_field(x)
     a, b = x[..., 0, :], x[..., 1, :]
-    s = fp_add(torch.stack([a, a], -2), torch.stack([b, a], -2))
-    return fp_mul(torch.stack([s[..., 0, :], s[..., 1, :]], -2),
-                  torch.stack([fp_sub(a, b), b], -2))
+    s = F.add(torch.stack([a, a], -2), torch.stack([b, a], -2))
+    return F.mul(torch.stack([s[..., 0, :], s[..., 1, :]], -2),
+                 torch.stack([F.sub(a, b), b], -2))
 
 
 def f2_mul_xi(x):
     """x·(1 + u) = (a - b) + (a + b)u."""
+    F = plain_field(x)
     a, b = x[..., 0, :], x[..., 1, :]
-    return torch.stack([fp_sub(a, b), fp_add(a, b)], -2)
+    return torch.stack([F.sub(a, b), F.add(a, b)], -2)
 
 
 def f2_inv(x):
-    a, b = x[..., 0, :], x[..., 1, :]
-    sq = fp_sqr(x)
-    ninv = fp_inv(fp_add(sq[..., 0, :], sq[..., 1, :]))
-    m = fp_mul(x, ninv[..., None, :])
-    return torch.stack([m[..., 0, :], fp_neg(m[..., 1, :])], -2)
+    F = plain_field(x)
+    sq = F.sqr(x)
+    ninv = F.inv(F.add(sq[..., 0, :], sq[..., 1, :]))
+    m = F.mul(x, ninv[..., None, :])
+    return torch.stack([m[..., 0, :], F.neg(m[..., 1, :])], -2)
 
 
 def f2_is_zero(x):
-    return fp_is_zero(x).all(-1)
+    return plain_field(x).is_zero(x).all(-1)
 
 
 def f2_one_like(x):
     one = torch.zeros_like(x)
-    one[..., 0, :] = fp.const_limbs(fp.R_MOD_P, x)
+    one[..., 0, :] = plain_field(x).one(x)
     return one
 
 
-# --- Fp6 = Fp2[v]/(v^3 - xi): (..., 3, 2, 24) ------------------------------------
+# --- Fp6 = Fp2[v]/(v^3 - xi): (..., 3, 2, w) -------------------------------------
 
 
 def f6_mul(a, b):
@@ -268,7 +387,7 @@ def f6_inv(a):
     return f2_mul(torch.stack([c0, c1, c2], -3), f2_inv(t)[..., None, :, :])
 
 
-# --- Fp12 in the w basis: (..., 6, 2, 24); the Fp6 pair (a, b) = (even, odd) -----
+# --- Fp12 in the w basis: (..., 6, 2, w); the Fp6 pair (a, b) = (even, odd) ------
 
 
 def _split(x):
@@ -280,8 +399,9 @@ def _join(a, b):
 
 
 def f12_one_like(x):
-    one = torch.zeros(x.shape[:-2] + (6, 2, NLIMBS), dtype=torch.int64, device=x.device)
-    one[..., 0, 0, :] = fp.const_limbs(fp.R_MOD_P, x)
+    """The Fp12 one over the batch shape of the Fp2 value x (..., 2, w)."""
+    one = torch.zeros(x.shape[:-2] + (6, 2, x.shape[-1]), dtype=x.dtype, device=x.device)
+    one[..., 0, 0, :] = plain_field(x).one(x)
     return one
 
 
@@ -334,12 +454,12 @@ def f12_inv(x):
 
 def f12_frobenius(x):
     """f^p: each coefficient conjugated, times gamma1^k."""
-    return f2_mul(f2_conj(x), _limb_const(GAMMA1, x))
+    return f2_mul(f2_conj(x), plain_field(x).const(GAMMA1, x))
 
 
 def f12_frobenius2(x):
     """f^(p^2): coefficient k times gamma2^k."""
-    return f2_mul(x, _limb_const(GAMMA2, x))
+    return f2_mul(x, plain_field(x).const(GAMMA2, x))
 
 
 def f12_cyclotomic_sqr(f):
@@ -370,11 +490,14 @@ def f12_cyclotomic_sqr(f):
 
 
 def f12_is_one(f):
-    """(...) bool: f == 1 in the Montgomery domain."""
-    return (f == f12_one_like(f[..., 0, :, :])).flatten(-3).all(-1)
+    """(...) bool: f == 1, coefficient 0's real part one and the eleven
+    others zero (over RNS, the class compares)."""
+    F = plain_field(f)
+    flat = f.flatten(-3, -2)
+    return F.is_one(flat[..., 0, :]) & F.is_zero(flat[..., 1:, :]).all(-1)
 
 
-# --- the pairing (limbs) ---------------------------------------------------------
+# --- the pairing ----------------------------------------------------------------
 
 
 def _dbl_step(T, xp, yp):
@@ -399,7 +522,7 @@ def _dbl_step(T, xp, yp):
     Y3 = f2_sub(Y3a, C8)
     Z3 = f2_add(YZ, YZ)
     xi0 = f2_mul_xi(f2_add(YZcu, YZcu))
-    lm = fp_mul(torch.stack([xi0, EZsq], -3), torch.stack([yp, xp], -2)[..., None, :])
+    lm = plain_field(xp).mul(torch.stack([xi0, EZsq], -3), torch.stack([yp, xp], -2)[..., None, :])
     l0, l5 = lm[..., 0, :, :], f2_neg(lm[..., 1, :, :])
     l3 = f2_sub(EX, f2_add(B, B))
     return torch.stack([X3, Y3, Z3], -3), (l0, l3, l5)
@@ -426,15 +549,15 @@ def _add_step(T, Q, xp, yp):
     Y3 = f2_sub(Y3a, YHcu)
     Z3 = HZ  # = Z·H, which JAX multiplies again
     xiHZ = f2_mul_xi(HZ)
-    lm = fp_mul(torch.stack([xiHZ, r], -3), torch.stack([yp, xp], -2)[..., None, :])
+    lm = plain_field(xp).mul(torch.stack([xiHZ, r], -3), torch.stack([yp, xp], -2)[..., None, :])
     l0, l5 = lm[..., 0, :, :], f2_neg(lm[..., 1, :, :])
     l3 = f2_sub(rxq, HZyq)
     return torch.stack([X3, Y3, Z3], -3), (l0, l3, l5)
 
 
 def miller_loop_limbs(Q, Pt):
-    """f_{|x|,Q}(P), conjugated (x < 0): Q (..., 2, 2, 24), P (..., 2, 24)
-    -> (..., 6, 2, 24)."""
+    """f_{|x|,Q}(P), conjugated (x < 0): Q (..., 2, 2, w), P (..., 2, w)
+    -> (..., 6, 2, w), over either plain field."""
     xp, yp = Pt[..., 0, :], Pt[..., 1, :]
     T = torch.stack([Q[..., 0, :, :], Q[..., 1, :, :], f2_one_like(Q[..., 0, :, :])], -3)
     f = f12_one_like(Q[..., 0, :, :])
@@ -469,15 +592,35 @@ def final_exponentiation_limbs(f):
     return f12_mul(c, f12_mul(f12_sqr(f), f))
 
 
-# --- curves (limbs): one code for G1 over Fp and G2 over Fp2 ----------------------
+# --- curves: one code for G1 over Fp and G2 over Fp2, either plain field ---------
 
 
 class _Fp:
     dims = 1
-    mul, sqr, add, sub = staticmethod(fp_mul), staticmethod(fp_sqr), staticmethod(fp_add), \
-        staticmethod(fp_sub)
-    is_zero = staticmethod(fp_is_zero)
-    inv = staticmethod(fp_inv)
+
+    @staticmethod
+    def mul(a, b):
+        return plain_field(a).mul(a, b)
+
+    @staticmethod
+    def sqr(a):
+        return plain_field(a).sqr(a)
+
+    @staticmethod
+    def add(a, b):
+        return plain_field(a).add(a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return plain_field(a).sub(a, b)
+
+    @staticmethod
+    def is_zero(a):
+        return plain_field(a).is_zero(a)
+
+    @staticmethod
+    def inv(a):
+        return plain_field(a).inv(a)
 
 
 class _Fp2:
@@ -598,20 +741,30 @@ def scalar_mul_limbs(F, pt, zbits):
     return acc
 
 
-def segment_sums_limbs(F, pts, offsets):
+def segment_sums_limbs(F, pts, offsets, units):
     """Affine sum of each segment [offsets[d], offsets[d+1]) of Jacobian
-    points (N, 3, ...): the segments padded with Z = 0 to one power-of-two
-    width and tree-summed with the complete add, then made affine."""
+    points (N, 3, ...) in K10's order (csrc/curve.cuh `block_tree_sum`):
+    unit u of `units` folds the entries u, u + units, ... into infinity, one
+    complete add an entry it has, then the units meet in a tree (unit u
+    takes unit u + half), and the sum is made affine."""
     counts = (offsets[1:] - offsets[:-1]).tolist()
-    d, width = len(counts), 1
-    while width < max(counts + [1]):
-        width *= 2
-    grid = torch.zeros((d, width) + pts.shape[1:], dtype=pts.dtype, device=pts.device)
+    d = len(counts)
+    rounds = max([-(-c // units) for c in counts] + [0])
+    grid = torch.zeros((d, rounds * units) + pts.shape[1:], dtype=pts.dtype, device=pts.device)
     for i, (start, count) in enumerate(zip(offsets[:-1].tolist(), counts)):
         grid[i, :count] = pts[start:start + count]
-    while grid.shape[1] > 1:
-        grid = jac_add(F, grid[:, 0::2], grid[:, 1::2])
-    return jac_to_affine(F, grid[:, 0])
+    grid = grid.reshape((d, rounds, units) + pts.shape[1:])
+    have = (torch.arange(rounds * units, device=pts.device).reshape(rounds, units)[None]
+            < torch.tensor(counts, device=pts.device)[:, None, None])
+    acc = torch.zeros((d, units) + pts.shape[1:], dtype=pts.dtype, device=pts.device)
+    for r in range(rounds):
+        live = have[:, r]
+        if live.any():
+            acc[live] = jac_add(F, acc[live], grid[:, r][live])
+    while acc.shape[1] > 1:
+        half = acc.shape[1] // 2
+        acc = jac_add(F, acc[:, :half], acc[:, half:])
+    return jac_to_affine(F, acc[:, 0])
 
 
 # --- kernel wrappers (words) -----------------------------------------------------
@@ -628,63 +781,80 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _instance(name: str, width: int) -> str:
+    """The entry point (and launch counter) of kernel `name` for elements of
+    `width` words: the limb instance, or its RNS instance `<name>_rns`."""
+    return name if word_field(width) is _LimbField else f"{name}_rns"
+
+
+def _launch(source, name, width, n_ptrs, n_ints, *args):
+    entry = _instance(name, width)
+    fn = build.entry(source, entry, n_ptrs, n_ints)
+    build.count_launch(entry)
+    build.check(fn(*args), entry)
+
+
 def rlc_ladders_plain(p, q, zbits, affine_g1=True):
     """Plain version of K9 (see `rlc_ladders`)."""
     g1 = g2 = None
+    F = word_field((p if p is not None else q).shape[-1])
     if p is not None:
-        pl = to_limbs(p)
-        jac = torch.cat([pl, fp.one_like(pl[:, :1])], 1)
+        pl = F.to_plain(p)
+        jac = torch.cat([pl, plain_field(pl).one(pl).expand_as(pl[:, :1])], 1)
         g1 = scalar_mul_limbs(_Fp, jac, zbits)
-        g1 = to_words(jac_to_affine(_Fp, g1) if affine_g1 else g1)
+        g1 = F.from_plain(jac_to_affine(_Fp, g1) if affine_g1 else g1)
     if q is not None:
-        ql = to_limbs(q)
+        ql = F.to_plain(q)
         jac = torch.cat([ql, f2_one_like(ql[:, :1])], 1)
-        g2 = to_words(scalar_mul_limbs(_Fp2, jac, zbits))
+        g2 = F.from_plain(scalar_mul_limbs(_Fp2, jac, zbits))
     return g1, g2
 
 
 def rlc_ladders(p, q, zbits, affine_g1=True):
     """K9: [z_i]·p_i over G1 and [z_i]·q_i over G2 (either may be None),
-    affine points in, (N, 2) int32 scalar words. Returns (G1 (N, 2, 12)
-    affine if `affine_g1` else (N, 3, 12) Jacobian, G2 (N, 3, 2, 12)
-    Jacobian). Kernel on CUDA, plain on the CPU."""
+    affine points in, (N, 2) int32 scalar words. Returns (G1 (N, 2, w)
+    affine if `affine_g1` else (N, 3, w) Jacobian, G2 (N, 3, 2, w)
+    Jacobian), w the elements' width (12 limb words, 64 RNS residues).
+    Kernel on CUDA, plain on the CPU."""
     zbits = _check("rlc_ladders zbits", zbits, (2,))
     n = zbits.shape[0]
+    w = (p if p is not None else q).shape[-1]
+    word_field(w)
     if p is not None:
-        p = _check("rlc_ladders p", p, (2, NWORDS))
+        p = _check("rlc_ladders p", p, (2, w))
     if q is not None:
-        q = _check("rlc_ladders q", q, (2, 2, NWORDS))
+        q = _check("rlc_ladders q", q, (2, 2, w))
     for t in (p, q):
         if t is not None and (t.shape[0] != n or t.device != zbits.device):
             raise ValueError("rlc_ladders: points and zbits differ in count or device")
     if is_cpu(zbits):
         return rlc_ladders_plain(p, q, zbits, affine_g1)
-    g1 = None if p is None else torch.empty((n, 2 if affine_g1 else 3, NWORDS),
+    g1 = None if p is None else torch.empty((n, 2 if affine_g1 else 3, w),
                                              dtype=torch.int32, device=zbits.device)
-    g2 = None if q is None else torch.empty((n, 3, 2, NWORDS), dtype=torch.int32,
+    g2 = None if q is None else torch.empty((n, 3, 2, w), dtype=torch.int32,
                                              device=zbits.device)
-    fn = build.entry("rlc", "rlc_ladders", 5, 3)
-    build.count_launch("rlc_ladders")
-    build.check(fn(_ptr(p), _ptr(q), zbits.data_ptr(), _ptr(g1), _ptr(g2), n,
-                   int(p is not None), int(q is not None), int(affine_g1),
-                   build.stream_ptr(zbits)), "rlc_ladders")
+    _launch("rlc", "rlc_ladders", w, 5, 3, _ptr(p), _ptr(q), zbits.data_ptr(), _ptr(g1), _ptr(g2),
+            n, int(p is not None), int(q is not None), int(affine_g1), build.stream_ptr(zbits))
     return g1, g2
 
 
 def point_sums_plain(pts, offsets):
     """Plain version of K10 (see `point_sums`)."""
-    F = _Fp if pts.dim() == 3 else _Fp2
-    return to_words(segment_sums_limbs(F, to_limbs(pts), offsets.cpu()))
+    F = word_field(pts.shape[-1])
+    G = _Fp if pts.dim() == 3 else _Fp2
+    return F.from_plain(segment_sums_limbs(G, F.to_plain(pts), offsets.cpu(), F.units))
 
 
 def point_sums(pts, offsets):
     """K10: the affine sum of each segment [offsets[d], offsets[d+1]) of
-    Jacobian points, G1 (N, 3, 12) -> (D, 2, 12) or G2 (N, 3, 2, 12) ->
-    (D, 2, 2, 12). An empty segment sums to infinity and comes out (0, 0).
+    Jacobian points, G1 (N, 3, w) -> (D, 2, w) or G2 (N, 3, 2, w) ->
+    (D, 2, 2, w). An empty segment sums to infinity and comes out (0, 0).
     `offsets` (D + 1,) int64 on the points' device. Kernel on CUDA, plain on
     the CPU."""
     g2 = pts.dim() == 4
-    pts = _check("point_sums", pts, (3, 2, NWORDS) if g2 else (3, NWORDS))
+    w = pts.shape[-1]
+    word_field(w)
+    pts = _check("point_sums", pts, (3, 2, w) if g2 else (3, w))
     if offsets.dtype != torch.int64 or offsets.dim() != 1 or offsets.device != pts.device:
         raise ValueError("point_sums: offsets must be (D + 1,) int64 on the points' device")
     if is_cpu(pts):
@@ -692,36 +862,35 @@ def point_sums(pts, offsets):
     offsets = offsets.contiguous()
     d = offsets.shape[0] - 1
     out = torch.empty((d, 2) + pts.shape[2:], dtype=torch.int32, device=pts.device)
-    fn = build.entry("rlc", "point_sums", 3, 1)
-    build.count_launch("point_sums")
-    build.check(fn(pts.data_ptr(), offsets.data_ptr(), out.data_ptr(), d, int(g2),
-                   build.stream_ptr(pts)), "point_sums")
+    _launch("rlc", "point_sums", w, 3, 1, pts.data_ptr(), offsets.data_ptr(), out.data_ptr(), d,
+            int(g2), build.stream_ptr(pts))
     return out
 
 
 def miller_loop_plain(q, p):
     """Plain version of K11 (see `miller_loop`)."""
-    f = miller_loop_limbs(to_limbs(q), to_limbs(p))
-    return to_words(f).reshape(-1, 12, NWORDS)
+    F = word_field(q.shape[-1])
+    f = miller_loop_limbs(F.to_plain(q), F.to_plain(p))
+    return F.from_plain(f).reshape(-1, 12, F.words)
 
 
 def miller_loop(q, p):
-    """K11: f_{|x|,Q}(P) conjugated, per pair: Q (B, 2, 2, 12) affine on the
-    twist, P (B, 2, 12) affine -> (B, 12, 12). Kernel on CUDA, plain on the
+    """K11: f_{|x|,Q}(P) conjugated, per pair: Q (B, 2, 2, w) affine on the
+    twist, P (B, 2, w) affine -> (B, 12, w). Kernel on CUDA, plain on the
     CPU."""
     global miller_loop_items
-    q = _check("miller_loop q", q, (2, 2, NWORDS))
-    p = _check("miller_loop p", p, (2, NWORDS))
+    w = q.shape[-1]
+    word_field(w)
+    q = _check("miller_loop q", q, (2, 2, w))
+    p = _check("miller_loop p", p, (2, w))
     if q.shape[0] != p.shape[0] or q.device != p.device:
         raise ValueError("miller_loop: Q and P differ in count or device")
     miller_loop_items += q.shape[0]
     if is_cpu(q):
         return miller_loop_plain(q, p)
-    out = torch.empty((q.shape[0], 12, NWORDS), dtype=torch.int32, device=q.device)
-    fn = build.entry("pairing", "miller_loop", 3)
-    build.count_launch("miller_loop")
-    build.check(fn(q.data_ptr(), p.data_ptr(), out.data_ptr(), q.shape[0],
-                   build.stream_ptr(q)), "miller_loop")
+    out = torch.empty((q.shape[0], 12, w), dtype=torch.int32, device=q.device)
+    _launch("pairing", "miller_loop", w, 3, 0, q.data_ptr(), p.data_ptr(), out.data_ptr(),
+            q.shape[0], build.stream_ptr(q))
     return out
 
 
@@ -738,11 +907,14 @@ def stack_limit() -> int:
 
 
 def _f12_limbs(m):
-    return to_limbs(m).reshape(*m.shape[:-2], 6, 2, NLIMBS)
+    F = word_field(m.shape[-1])
+    p = F.to_plain(m)
+    return p.reshape(*m.shape[:-2], 6, 2, p.shape[-1])
 
 
 def _f12_words(f):
-    return to_words(f).reshape(*f.shape[:-3], 12, NWORDS)
+    F = plain_field(f)
+    return F.from_plain(f).reshape(*f.shape[:-3], 12, F.words)
 
 
 def final_exp_batch_plain(m1, m2=None):
@@ -755,7 +927,7 @@ def final_exp_batch_plain(m1, m2=None):
 
 
 def f12_tree_product_limbs(f):
-    """The product of the n Fp12 values f (n, 6, 2, 24), in the tree order of
+    """The product of the n Fp12 values f (n, 6, 2, w), in the tree order of
     K12's tail and K25 (csrc/pairing.cu `f12_tree_product`): at each level
     value i takes value i + ceil(n/2)."""
     while f.shape[0] > 1:
@@ -779,8 +951,8 @@ def f12_product_plain(m):
 def f12_product(m):
     """K25: the product of the B Fp12 values m (B, 12, 12), B >= 1 -> (12,
     12), with no final exponentiation (`f12_prod_reduce` :1061): one block
-    tree-multiplies a copy of m by the tree of K12's tail. Kernel on CUDA,
-    plain on the CPU."""
+    tree-multiplies a copy of m by the tree of K12's tail. Limb field only.
+    Kernel on CUDA, plain on the CPU."""
     m = _check("f12_product", m, (12, NWORDS))
     if m.shape[0] < 1:
         raise ValueError("f12_product of no values")
@@ -796,23 +968,23 @@ def f12_product(m):
 def _final_exp(m1, m2, mode):
     """Launch K12: mode 1 (batch) over the items of m1 (times m2), mode 0
     (tail) over the product of all of m1's rows, which it overwrites."""
-    b = m1.shape[0]
-    out = torch.empty((b if mode == 1 else 1, 12, NWORDS), dtype=torch.int32, device=m1.device)
+    b, w = m1.shape[0], m1.shape[-1]
+    out = torch.empty((b if mode == 1 else 1, 12, w), dtype=torch.int32, device=m1.device)
     ok = torch.empty(out.shape[0], dtype=torch.int32, device=m1.device)
-    fn = build.entry("pairing", "final_exp", 4, 1)
-    build.count_launch("final_exp")
-    build.check(fn(m1.data_ptr(), _ptr(m2), out.data_ptr(), ok.data_ptr(), b, mode,
-                   build.stream_ptr(m1)), "final_exp")
+    _launch("pairing", "final_exp", w, 4, 1, m1.data_ptr(), _ptr(m2), out.data_ptr(),
+            ok.data_ptr(), b, mode, build.stream_ptr(m1))
     return out, ok != 0
 
 
 def final_exp_batch(m1, m2=None):
     """K12, batch mode: per item the final exponentiation of m1 (times m2
-    where given), (B, 12, 12) -> (the cube of the reduced pairing (B, 12,
-    12), is_one (B,) bool). Kernel on CUDA, plain on the CPU."""
-    m1 = _check("final_exp_batch", m1, (12, NWORDS))
+    where given), (B, 12, w) -> (the cube of the reduced pairing (B, 12, w),
+    is_one (B,) bool). Kernel on CUDA, plain on the CPU."""
+    w = m1.shape[-1]
+    word_field(w)
+    m1 = _check("final_exp_batch", m1, (12, w))
     if m2 is not None:
-        m2 = _check("final_exp_batch m2", m2, (12, NWORDS))
+        m2 = _check("final_exp_batch m2", m2, (12, w))
         if m2.shape != m1.shape or m2.device != m1.device:
             raise ValueError("final_exp_batch: m1 and m2 differ in shape or device")
     if is_cpu(m1):
@@ -821,14 +993,16 @@ def final_exp_batch(m1, m2=None):
 
 
 def final_exp_tail(m, extra):
-    """K12, tail mode: the product of the B Miller values m (B, 12, 12) and
-    `extra` (12, 12), then one final exponentiation -> (cube (12, 12),
-    is_one 0-d bool). One block tree-multiplies, one thread exponentiates.
+    """K12, tail mode: the product of the B Miller values m (B, 12, w) and
+    `extra` (12, w), then one final exponentiation -> (cube (12, w), is_one
+    0-d bool). One block's units tree-multiply, one unit exponentiates.
     Kernel on CUDA, plain on the CPU."""
-    m = _check("final_exp_tail", m, (12, NWORDS))
-    if extra.dtype != torch.int32 or tuple(extra.shape) != (12, NWORDS) \
+    w = m.shape[-1]
+    word_field(w)
+    m = _check("final_exp_tail", m, (12, w))
+    if extra.dtype != torch.int32 or tuple(extra.shape) != (12, w) \
             or extra.device != m.device:
-        raise ValueError("final_exp_tail: extra must be (12, 12) int32 on m's device")
+        raise ValueError("final_exp_tail: extra must be (12, w) int32 on m's device")
     if is_cpu(m):
         return final_exp_tail_plain(m, extra)
     out, ok = _final_exp(torch.cat([m, extra[None]]), None, 0)
@@ -838,7 +1012,10 @@ def final_exp_tail(m, extra):
 # --- pairings and the randomized batch check (words) ------------------------------
 
 
-def neg_g1_words(device) -> torch.Tensor:
+def neg_g1_words(device, width: int = NWORDS) -> torch.Tensor:
+    """-G1 affine, (2, width): Montgomery words or RNS residues."""
+    if word_field(width) is _RnsField:
+        return _RnsField.const(list(NEG_G1), torch.empty(0, device=device)).to(torch.int32)
     return g1_to_words([NEG_G1])[0].to(device)
 
 
@@ -941,7 +1118,8 @@ def pairing_check_rlc(q1, p1, q2, zbits, seg_ids=None):
         a1 = point_sums(z1[order], offsets)
         members = (offsets[1:] > offsets[:-1]).all()
     aq = point_sums(zsig, _whole(zsig))
-    m = miller_loop(torch.cat([q1, aq]), torch.cat([a1, neg_g1_words(a1.device)[None]]))
+    m = miller_loop(torch.cat([q1, aq]),
+                    torch.cat([a1, neg_g1_words(a1.device, a1.shape[-1])[None]]))
     ok = rlc_tail(m[:-1], m[-1])
     return ok if members is None else ok & members
 
@@ -953,9 +1131,8 @@ def pack_mont(ints, device) -> torch.Tensor:
 
 
 FIELD_BACKENDS = {
-    "limb": FieldBackend(NWORDS, pack_mont, pairing_check_batch, pairing_check_rlc),
-    "rns": FieldBackend(fp_rns.NLIMBS, bls12_field.pack_mont, bls12_field.check_batch_packed,
-                        bls12_field.check_rlc_packed),
+    "limb": FieldBackend(NWORDS, pack_mont),
+    "rns": FieldBackend(fp_rns.NLIMBS, bls12_field.pack_mont),
 }
 
 

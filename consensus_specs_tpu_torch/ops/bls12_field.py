@@ -2,11 +2,14 @@
 check over a field module `F` (counterpart of ops/bls12_jax.py, as that
 module writes them over its swappable field backend).
 
-Here `F` is ops/fp_rns.py, the RNS field, so this is the port's "rns" field
-backend of the BLS flush (ops/bls12.set_field_backend): every Fp operation
-is one call of `F`, so on the card one launch of K24 `rns_ops`, and what
-lies between them (stacking, indexing, selection, concatenation) is torch
-glue. The limb backend keeps its own kernels, K9-K12 (ops/bls12.py).
+Here `F` is ops/fp_rns.py, the RNS field: every Fp operation is one call of
+`F` (on the card one launch of K24 `rns_ops`), and what lies between them
+(stacking, indexing, selection, concatenation) is torch glue. This module is
+the mirror of JAX's tower code on JAX's default field, held against it on
+the CPU; no flush runs it. The flush's "rns" field backend
+(ops/bls12.set_field_backend) runs K9-K12's RNS instances (ops/bls12.py),
+whose plain version uses the kernels' formulas; `pack_mont` here is that
+backend's packing.
 
 The code follows bls12_jax.py line for line: the same stacked calls, the
 same wide products with one Montgomery reduction per output coefficient,
@@ -903,11 +906,12 @@ def f12_from_tensors(f) -> list:
     return [tuple((coeffs[k][0][i], coeffs[k][1][i]) for k in range(6)) for i in range(n)]
 
 
-# --- the flush's "rns" backend (ops/bls12.FIELD_BACKENDS) ----------------------------
+# --- the flush's packed layout ---------------------------------------------------------
 #
 # crypto/bls_torch.py packs a flush once, in ops/bls12.py's layout: Q (B, 2, 2, w),
-# P (B, 2, w), scalars as (B, 2) int32 words. These take that layout, as the limb
-# backend's `pairing_check_batch` / `pairing_check_rlc` do.
+# P (B, 2, w), scalars as (B, 2) int32 words; `pack_mont` is the "rns" backend's
+# packing (ops/bls12.FIELD_BACKENDS), and the helpers below carry that layout into
+# this module's tuples and JAX's bit form.
 
 
 def pack_mont(ints, device) -> torch.Tensor:
@@ -932,22 +936,3 @@ def g2_pair(q):
 def g1_pair(p):
     """(n, 2, w) -> (x, y)."""
     return p[:, 0], p[:, 1]
-
-
-def check_batch_packed(q1, p1, q2, p2):
-    """`pairing_check_batch` over the packed layout: (B,) bool."""
-    return pairing_check_batch(*g2_pair(q1), *g1_pair(p1), *g2_pair(q2), *g1_pair(p2))
-
-
-def check_rlc_packed(q1, p1, q2, zbits, seg_ids=None):
-    """`pairing_check_rlc` with every P2 = -G1 over the packed layout, scalars
-    as (N, 2) words. With `seg_ids` a segment without a member fails the batch,
-    as the limb backend decides it (ROADMAP C2). Returns a 0-d bool."""
-    bits = zbits_to_bits(zbits)
-    if seg_ids is None:
-        return pairing_check_rlc(*g2_pair(q1), *g1_pair(p1), *g2_pair(q2), None, None, bits,
-                                 p2_is_neg_g1=True)
-    members = (torch.bincount(seg_ids.to(torch.int64), minlength=q1.shape[0]) > 0).all()
-    ok = pairing_check_rlc(*g2_pair(q1), *g1_pair(p1), *g2_pair(q2), None, None, bits,
-                           p2_is_neg_g1=True, seg_ids=seg_ids)
-    return ok & members.to(ok.device)

@@ -21,19 +21,25 @@ extended back to base A the same way with offset +1/4, which is exact.
 
 Kernel K24 `rns_ops` (csrc/fp_rns.cu, the field in csrc/fp_rns.cuh, its
 constants in the generated csrc/rns_constants.cuh) computes every op by op
-code, one thread an element: add, sub, neg, mul_wide, mont_reduce, mont_mul,
-the power ladders for p - 2 and (p + 1)/4 (one launch each), sum_stack
-(k <= 8), is_zero and is_one_mont. `rns_ops` launches it for CUDA tensors and
-runs `rns_ops_plain` for CPU tensors; a build, load or launch failure raises
-`kernels/build.KernelError`. `OP_LAUNCHES` counts the launches by op code.
+code, one warp an element (lane c holds residues c and 32 + c): add, sub,
+neg, mul_wide, mont_reduce, mont_mul, the power ladders for p - 2 and
+(p + 1)/4 (one launch each), sum_stack (k <= 8), is_zero and is_one_mont.
+`rns_ops` launches it for CUDA tensors and runs `rns_ops_plain` for CPU
+tensors; a build, load or launch failure raises `kernels/build.KernelError`.
+`OP_LAUNCHES` counts the launches by op code. The same device field runs
+inside the BLS kernels K9-K12 (their RNS instances, ops/bls12.py), whose
+plain version calls `rns_ops_plain` field op by field op; `plain_muls`
+counts its Montgomery products.
 
 The plain version computes in int64 (torch on the CPU has no unsigned
 shifts) and copies the JAX package's fold-and-subtract reductions `_fold` /
-`_red_full` / `_red_small` and its balanced int8 split of the base
-extension; the kernel accumulates the extension's 32 products in 64 bits,
-which gives the same canonical residue (the card-only tests and the smoke
-hold the two bit-equal). Both sum alpha's 32 float32 terms in channel order
-0..31 (the kernel with `__fmul_rn` / `__fadd_rn`, never fused).
+`_red_full` / `_red_small`; it sums each base extension's 32 products in
+int64 as the kernel does (JAX splits them into four int8 matmuls, which gives
+the same canonical residue; the card-only tests and the smoke hold the
+kernel and the plain version bit-equal). Both sum alpha's 32 float32 terms in channel order
+0..31 (the kernel on every lane, with `__fmul_rn` / `__fadd_rn`, never
+fused). `check_windows()` asserts the windows csrc/fp_rns.cuh states on
+every plain reduction.
 
 The contract with the JAX package (tests/test_torch_fp_rns.py,
 tests/test_torch_bls12_field.py):
@@ -52,6 +58,7 @@ tests/test_torch_bls12_field.py):
 from __future__ import annotations
 
 from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -153,6 +160,7 @@ _BINARY = (OP_ADD, OP_SUB, OP_MUL_WIDE, OP_MONT_MUL)
 _PREDICATES = (OP_IS_ZERO, OP_IS_ONE)
 
 OP_LAUNCHES: Counter = Counter()  # K24 launches by op name (CUDA tensors only)
+plain_muls = 0  # Montgomery products the plain version computed (elements)
 
 
 # --- host codecs -------------------------------------------------------------
@@ -225,8 +233,7 @@ def _const(name: str, device) -> torch.Tensor:
             "mainv_mod_b": _MAINV_MOD_B, "one": ONE_MONT, "zero_classes": _ZERO_CLASSES,
             "one_classes": _ONE_CLASSES}
         for tag, ext in (("ab", _EXT_AB), ("ba", _EXT_BA)):
-            arrays.update({f"{tag}_w_inv": ext.w_inv,
-                           f"{tag}_C_split": np.stack([ext.C_hi, ext.C_lo]),
+            arrays.update({f"{tag}_w_inv": ext.w_inv, f"{tag}_C": ext.C,
                            f"{tag}_mmod": ext.m_src_prod_mod_dst,
                            f"{tag}_m": ext.dst_m, f"{tag}_delta": ext.dst_delta})
         if name.endswith("_inv_f32"):
@@ -271,28 +278,78 @@ def _alpha(sigma, inv, offset: float):
 
 def _extend(sigma, tag: str, offset: float):
     """sum_i sigma_i·(M/m_i) - alpha·M in the destination base, canonical
-    (ops/fp_rns.py:255): the balanced int8 split, four products, the terms
-    reduced, alpha subtracted."""
+    (ops/fp_rns.py:255): the 32 products summed exactly (each below 2^30, the
+    sum below 2^35: a float64 matmul is exact, on either device) and folded
+    as the kernel does; JAX splits them into four int8 products for the MXU,
+    which reaches the same canonical residue."""
     dev = sigma.device
-    m, delta = _const(f"{tag}_m", dev), _const(f"{tag}_delta", dev)
-    hi = (sigma + 128) >> 8
-    halves = torch.stack([hi, sigma - (hi << 8)])  # (2, N, 32): hi, lo
-    # the four int8 products hi·C_hi, hi·C_lo, lo·C_hi, lo·C_lo, summed in
-    # int64 (exact; CUDA has no integer matmul)
-    (hh, hl), (lh, ll) = (halves[:, None, :, :, None]
-                          * _const(f"{tag}_C_split", dev)[None, :, None]).sum(-2)
-    off64 = m << 6
-    s_hh = _red_small(hh, m)
-    s_mid = _red_small(hl + lh + off64, m)
-    s_ll = _red_small(ll + off64, m)
-    v = _red_full(s_hh * (2 * delta), m) + (s_mid << 8) + s_ll
+    m = _const(f"{tag}_m", dev)
+    acc = (sigma.double() @ _const(f"{tag}_C", dev).double()).long()
+    v = _red_full((acc >> LIMB_BITS) * (TWO15 - m) + (acc & (TWO15 - 1)), m)
     alpha = _alpha(sigma, _const(f"{tag}_inv_f32", dev), offset)
     v = v + (m << 11) - alpha[:, None] * _const(f"{tag}_mmod", dev)
     return _red_full(v, m)
 
 
+# --- the windows of csrc/fp_rns.cuh, checked ---------------------------------
+#
+# Inside `check_windows()` (off by default) every plain `_mont_reduce`
+# decodes its input t by CRT over both bases as the signed integer T in
+# (-M/2, M/2) and asserts -p·M_A/2^9 < T < p·M_A (the result window), and
+# decodes its result r over each base apart: the two must be one integer
+# (the second extension exact) in (-p/2^9, 3p). `window_checks` counts the
+# elements checked.
+
+_M_AB = M_A * M_B
+_CRT = {"all": ([(_M_AB // m) * pow(_M_AB // m, -1, m) for m in _PRIMES], _M_AB),
+        "a": ([(M_A // m) * pow(M_A // m, -1, m) for m in A_PRIMES], M_A),
+        "b": ([(M_B // m) * pow(M_B // m, -1, m) for m in B_PRIMES], M_B)}
+_checking = False
+window_checks = 0
+
+
+@contextmanager
+def check_windows():
+    """Within: assert the mont_reduce windows on every plain reduction."""
+    global _checking
+    saved, _checking = _checking, True
+    try:
+        yield
+    finally:
+        _checking = saved
+
+
+def _signed_crt(res, base: str = "all") -> list:
+    """(N, k) residues over base "a", "b" or "all" (64 channels) -> the
+    signed integers they stand for, in (-M/2, M/2)."""
+    weights, modulus = _CRT[base]
+    out = []
+    for row in res.tolist():
+        v = sum(r * w for r, w in zip(row, weights)) % modulus
+        out.append(v - modulus if v > modulus // 2 else v)
+    return out
+
+
+def _assert_windows(t, r) -> None:
+    global window_checks
+    lo, hi = -(P * M_A) // 2**9, P * M_A
+    for x, ra, rb in zip(_signed_crt(t), _signed_crt(r[:, :K_PER_BASE], "a"),
+                         _signed_crt(r[:, K_PER_BASE:], "b")):
+        assert lo < x < hi, f"mont_reduce input {x} outside (-p·M_A/2^9, p·M_A)"
+        assert ra == rb, f"mont_reduce: base A says {ra}, base B {rb}: extension inexact"
+        assert -P // 2**9 < ra < 3 * P, f"mont_reduce result {ra} outside (-p/2^9, 3p)"
+    window_checks += t.shape[0]
+
+
 def _mont_reduce(t):
     """t -> t·M_A^-1 (mod p) in (-p/2^9, 3p); t (N, 64) int64 residues."""
+    out = _mont_reduce_unchecked(t)
+    if _checking:
+        _assert_windows(t, out)
+    return out
+
+
+def _mont_reduce_unchecked(t):
     dev = t.device
     mA, mB = _const("mA", dev), _const("mB", dev)
     tA, tB = t[:, :K_PER_BASE], t[:, K_PER_BASE:]
@@ -311,6 +368,8 @@ def _mul_wide(x, y):
 
 
 def _mont_mul(x, y):
+    global plain_muls
+    plain_muls += x.shape[0]
     return _mont_reduce(_mul_wide(x, y))
 
 
@@ -496,6 +555,8 @@ def fp_is_one_mont(a):
 def cuda_constants_header() -> str:
     """The text of csrc/rns_constants.cuh, generated from these constants (a
     test holds the committed file equal to it)."""
+    from ..crypto import bls12_381 as oracle
+
     def ints(a):
         return "{" + ", ".join(str(int(v)) for v in np.asarray(a).reshape(-1)) + "}"
 
@@ -506,30 +567,42 @@ def cuda_constants_header() -> str:
     def words(x):
         return "{" + ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(12)) + "}"
 
+    gamma1 = [oracle.f2_pow(oracle.XI, i * (P - 1) // 6) for i in range(6)]
+    gamma2 = [oracle.f2_mul(oracle.f2_conj(g), g) for g in gamma1]
+
+    def gammas(gs):
+        return ints(np.stack([np.stack([to_mont(g[0]), to_mont(g[1])]) for g in gs]))
+
     ext_rows = []
     for tag, ext in (("AB", _EXT_AB), ("BA", _EXT_BA)):
         ext_rows += [
-            f"__device__ __constant__ int RNS_{tag}_WINV[32] = {ints(ext.w_inv)};",
+            f"__device__ const int RNS_{tag}_WINV[32] = {ints(ext.w_inv)};",
             f"// C[i][j] = (M_src / m_i) mod dst_j, row-major by source channel i",
-            f"__device__ __constant__ int RNS_{tag}_C[1024] = {ints(ext.C)};",
-            f"__device__ __constant__ int RNS_{tag}_MMOD[32] = {ints(ext.m_src_prod_mod_dst)};",
+            f"__device__ const int RNS_{tag}_C[1024] = {ints(ext.C)};",
+            f"__device__ const int RNS_{tag}_MMOD[32] = {ints(ext.m_src_prod_mod_dst)};",
             f"// float32 bit patterns of 1 / m_i (numpy's float64 quotient rounded)",
-            f"__device__ __constant__ unsigned RNS_{tag}_INV[32] = {f32_bits(ext.inv_src_f32)};"]
+            f"__device__ const unsigned RNS_{tag}_INV[32] = {f32_bits(ext.inv_src_f32)};"]
     body = "\n".join(ext_rows)
     return f"""// Generated by consensus_specs_tpu_torch.ops.fp_rns.cuda_constants_header();
 // a test holds this file equal to its output. The RNS field's 64 primes
-// (base A = channels 0..31, base B = 32..63), Montgomery R = M_A.
+// (base A = channels 0..31, base B = 32..63), Montgomery R = M_A. The
+// tables are global memory, read into shared memory by each kernel's
+// prologue (fp_rns.cuh) or, the Frobenius constants, by each lane directly;
+// the exponents, read at one address by a whole warp, are constant memory.
 #pragma once
 
-__device__ __constant__ int RNS_M[64] = {ints(_M_ALL)};
-__device__ __constant__ int RNS_DELTA[64] = {ints(_DELTA)};
-__device__ __constant__ int RNS_NEG_PINV_A[32] = {ints(_NEG_PINV_A)};
-__device__ __constant__ int RNS_P_MOD_B[32] = {ints(_P_MOD_B)};
-__device__ __constant__ int RNS_MAINV_MOD_B[32] = {ints(_MAINV_MOD_B)};
+__device__ const int RNS_M[64] = {ints(_M_ALL)};
+__device__ const int RNS_NEG_PINV_A[32] = {ints(_NEG_PINV_A)};
+__device__ const int RNS_P_MOD_B[32] = {ints(_P_MOD_B)};
+__device__ const int RNS_MAINV_MOD_B[32] = {ints(_MAINV_MOD_B)};
 {body}
-__device__ __constant__ int RNS_ONE_MONT[64] = {ints(ONE_MONT)};
-__device__ __constant__ int RNS_ZERO_CLASSES[192] = {ints(_ZERO_CLASSES)};
-__device__ __constant__ int RNS_ONE_CLASSES[192] = {ints(_ONE_CLASSES)};
+__device__ const int RNS_ONE_MONT[64] = {ints(ONE_MONT)};
+__device__ const int RNS_ZERO_CLASSES[192] = {ints(_ZERO_CLASSES)};
+__device__ const int RNS_ONE_CLASSES[192] = {ints(_ONE_CLASSES)};
+// gamma1^k = xi^(k(p-1)/6) and gamma2^k = conj(gamma1^k)·gamma1^k, k = 0..5,
+// Montgomery residues ([k][re, im][channel])
+__device__ const int RNS_GAMMA1[6][2][64] = {gammas(gamma1)};
+__device__ const int RNS_GAMMA2[6][2][64] = {gammas(gamma2)};
 // exponents (plain integers, little-endian words): p - 2, (p + 1) / 4
 __device__ __constant__ unsigned RNS_EXP_INV[12] = {words(EXP_INV)};
 __device__ __constant__ unsigned RNS_EXP_SQRT[12] = {words(EXP_SQRT)};

@@ -11,11 +11,11 @@ sync-committee sample (the rotation's work) on the current columns, and
 the BLS flushes of one block (131 checks) and of one slot's gossip
 aggregates (1024 checks), from `crypto/bls_synthetic.flush_inputs(0)`
 after one warm-up flush each, the same two flushes over the RNS field
-backend (ops/bls12_field over K24; the block flush's warm-up is the
+backend (K9-K12's RNS instances; the block flush's warm-up is the
 process's first RNS flush, and it and a second one run under cProfile to
-show what the first use costs; their K24 launches by op code are printed
-from one counted flush each, and the block flush runs under cProfile
-too), the block's cold committee-key aggregation
+show what the first use costs; their launches by kernel, and K24's by op
+code, are printed from one counted flush each, and the block flush runs
+under cProfile too), the block's cold committee-key aggregation
 (129 FastAggregateVerify calls over 66,048 keys, key caches cleared,
 signatures decompressed before), the KZG sample batch at 128 blobs
 (`crypto/msm_synthetic`, seed 0) and the fork-choice head at V = N
@@ -175,7 +175,7 @@ def main(argv=None) -> int:
     gossip_flush()
 
     def rns(fn):
-        """fn under the "rns" field backend (ops/bls12_field over K24)."""
+        """fn under the "rns" field backend (K9-K12's RNS instances)."""
         def run():
             bls12.set_field_backend("rns")
             try:
@@ -239,9 +239,9 @@ def main(argv=None) -> int:
         fp_rns.OP_LAUNCHES.clear()
         rns(fn)()
         torch.cuda.synchronize()
-        print(f"K24 launches in one {label} flush over the RNS field: "
-              f"{build.LAUNCHES['rns_ops']} by op {dict(fp_rns.OP_LAUNCHES)}; other kernels "
-              f"{ {k: v for k, v in build.LAUNCHES.items() if v and k != 'rns_ops'} }")
+        print(f"launches in one {label} flush over the RNS field: "
+              f"{ {k: v for k, v in build.LAUNCHES.items() if v} }; K24 "
+              f"{build.LAUNCHES['rns_ops']} by op {dict(fp_rns.OP_LAUNCHES)}")
 
     import cProfile
     import io

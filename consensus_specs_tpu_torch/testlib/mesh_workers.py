@@ -144,6 +144,30 @@ def collectives_ranks(rank, world, device, g1_cases, ungrouped, grouped):
     return out
 
 
+
+def g1_sum_ranks(rank, world, device, g1_cases):
+    """`g1_mesh_sum` of each of `g1_cases` ({name: (n, 3, 12) points}) on
+    this rank's 1-rank mesh, its 2-rank mesh and the whole group's mesh:
+    {name: {mesh size: affine int pair}}."""
+    one = [submesh([r], device) for r in range(world)][rank]
+    two = [submesh([0, 1], device), submesh([2, 3], device)][rank // 2]
+    whole = make_mesh(device_type=device)
+    return {name: {size: _affine(C.g1_mesh_sum(pts, mesh))
+                   for size, mesh in ((1, one), (2, two), (world, whole))}
+            for name, pts in g1_cases.items()}
+
+
+def mesh_check_ranks(rank, world, device, check, cases):
+    """One randomized-check collective on the whole group's mesh over each of
+    `cases`: "rlc" runs `pairing_check_rlc_mesh` on {name: (q1, p1, q2, p2,
+    zbits, p2_is_neg_g1)}, "grouped" `pairing_check_rlc_grouped_mesh` on
+    {name: (q1, p1, q2, zbits, seg_ids)}. Returns {name: bool}."""
+    mesh = make_mesh(device_type=device)
+    if check == "rlc":
+        return {name: bool(C.pairing_check_rlc_mesh(mesh, *a[:5], p2_is_neg_g1=a[5]))
+                for name, a in cases.items()}
+    return {name: bool(C.pairing_check_rlc_grouped_mesh(mesh, *a)) for name, a in cases.items()}
+
 # --- the multi-device main path on the card (chip_smoke.py phase 5i) -------
 
 

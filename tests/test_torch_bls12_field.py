@@ -269,10 +269,8 @@ def test_pairing_check_batch_flags_the_bad_item():
 def test_backend_switch_and_its_names():
     assert B.field_backend() == "limb" and sorted(B.FIELD_BACKENDS) == ["limb", "rns"]
     rns, limb = B.FIELD_BACKENDS["rns"], B.FIELD_BACKENDS["limb"]
-    assert (rns.width, rns.pack, rns.check_batch, rns.check_rlc) == (
-        R.NLIMBS, BF.pack_mont, BF.check_batch_packed, BF.check_rlc_packed)
-    assert (limb.width, limb.check_batch, limb.check_rlc) == (
-        12, B.pairing_check_batch, B.pairing_check_rlc)
+    assert (rns.width, rns.pack) == (R.NLIMBS, BF.pack_mont)
+    assert (limb.width, limb.pack) == (12, B.pack_mont)
     assert B.current_field() is limb
     B.set_field_backend("rns")
     try:

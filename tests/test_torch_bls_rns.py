@@ -1,13 +1,15 @@
 """The port's BLS flush under the "rns" field backend
 (ops/bls12.set_field_backend("rns"): crypto/bls_torch.py packs RNS residues
-and runs ops/bls12_field.py, on the CPU over the plain version of K24):
+and runs ops/bls12.py's checks, on the CPU their plain version over the
+plain version of K24):
 - its packing equals the JAX package's under JAX's default (RNS) field, and
   the limb packing carried across (`engine/convert.rns_from_words`);
 - `run_checks` and the shim give the "limb" backend's verdicts on the same
   checks, a bad one named;
 - the randomized grouped path records the flush as the limb path does
-  (path, items, distinct, D + 1 Miller loops) and launches no limb kernel
-  (no K9-K12 Miller loop counted).
+  (path, items, distinct, D + 1 Miller loops, counted by ops/bls12.py) and
+  never runs ops/bls12_field.py (JAX's towers line for line, kept as their
+  mirror).
 Inputs come from numpy seeds; comparisons are exact.
 """
 import numpy as np
@@ -100,23 +102,31 @@ def test_zbits_to_bits_is_jax_form():
 
 
 def test_grouped_rns_check_fails_an_empty_segment(monkeypatch):
-    """The "rns" backend's grouped check decides C2's rule as the limb one
-    does: a segment without a member fails the batch whatever the pairing
+    """The grouped check on the "rns" backend's 64-residue values decides
+    C2's rule as on limbs: a segment without a member fails the batch whatever the pairing
     product says (the product is stubbed to pass here, so only the rule
     decides), and full segments leave the product's verdict."""
     calls = []
 
-    def product_passes(*args, **kw):
-        calls.append(kw["seg_ids"].tolist())
+    def product_passes(m1, m2_single):
+        calls.append(m1.shape[0])
         return torch.tensor(True)
 
-    monkeypatch.setattr(BF, "pairing_check_rlc", product_passes)
-    rns = B.FIELD_BACKENDS["rns"]
-    q1, p1, q2 = torch.zeros(3, 2, 2, 64), torch.zeros(4, 2, 64), torch.zeros(4, 2, 2, 64)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32)
+
+    # the stages stubbed with zeros of their shapes: only the rule decides
+    monkeypatch.setattr(B, "rlc_ladders", lambda p, q, z, affine_g1=True: (
+        zeros(p.shape[0], 3, 64), zeros(q.shape[0], 3, 2, 64)))
+    monkeypatch.setattr(B, "point_sums", lambda pts, off: zeros(off.shape[0] - 1, 2,
+                                                                *pts.shape[2:]))
+    monkeypatch.setattr(B, "miller_loop", lambda q, p: zeros(q.shape[0], 12, 64))
+    monkeypatch.setattr(B, "rlc_tail", product_passes)
+    q1, p1, q2 = zeros(3, 2, 2, 64), zeros(4, 2, 64), zeros(4, 2, 2, 64)
     zbits = torch.ones(4, 2, dtype=torch.int32)
-    assert bool(rns.check_rlc(q1, p1, q2, zbits, torch.tensor([0, 1, 2, 0])))
-    assert not bool(rns.check_rlc(q1, p1, q2, zbits, torch.tensor([0, 1, 1, 0])))
-    assert calls == [[0, 1, 2, 0], [0, 1, 1, 0]]
+    assert bool(B.pairing_check_rlc(q1, p1, q2, zbits, torch.tensor([0, 1, 2, 0])))
+    assert not bool(B.pairing_check_rlc(q1, p1, q2, zbits, torch.tensor([0, 1, 1, 0])))
+    assert calls == [3, 3]
 
 
 def test_run_checks_gives_the_limb_verdicts(field):
@@ -126,21 +136,21 @@ def test_run_checks_gives_the_limb_verdicts(field):
     checks.append(None)
     limb = bls_torch.run_checks(checks, "cpu")
     field("rns")
-    loops, rns_loops = B.miller_loop_items, BF.miller_loop_items
+    loops, mirror_loops = B.miller_loop_items, BF.miller_loop_items
     got = bls_torch.run_checks(checks, "cpu")
     assert got.tolist() == limb.tolist() == [True, False, True, True, False]
-    assert B.miller_loop_items == loops and BF.miller_loop_items - rns_loops == 16
+    assert B.miller_loop_items - loops == 16 and BF.miller_loop_items == mirror_loops
 
 
 def test_grouped_flush_records_as_the_limb_path(field):
     field("rns")
     checks = _checks(16, 4, 3)
     plan = bucketing.grouped_plan([c.q1 for c in checks], 8)
-    loops, rns_loops = B.miller_loop_items, BF.miller_loop_items
+    loops, mirror_loops = B.miller_loop_items, BF.miller_loop_items
     assert bls_torch.run_checks(checks, "cpu").all()
     assert dict(bls_torch.LAST_FLUSH) == dict(path="rlc_grouped", items=plan.b_n,
                                               distinct=plan.b_d, miller_loops=plan.b_d + 1)
-    assert BF.miller_loop_items - rns_loops == plan.b_d + 1 and B.miller_loop_items == loops
+    assert B.miller_loop_items - loops == plan.b_d + 1 and BF.miller_loop_items == mirror_loops
 
 
 def test_shim_under_rns_flushes_once_and_names_the_bad_call(cpu_shim, field):

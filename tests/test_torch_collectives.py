@@ -7,9 +7,12 @@ One spawn of four ranks (`testlib/ranks.run_ranks`, workers in
 on meshes of 1, 2 and 4 ranks, the ValueErrors, and the randomized checks on
 two 2-rank meshes side by side, while this process computes the references
 (the single-device `pairing_check_rlc`, the oracle's pairing products).
-Every comparison is exact: canonical affine coordinates and booleans. A
-`slow` test holds the three collectives against the JAX package's on its
-8-device CPU mesh (JAX's pairing programs compile for minutes).
+Every comparison is exact: canonical affine coordinates and booleans. Three
+tests hold the three collectives against the JAX package's on its 8-device
+CPU mesh, one a collective, at the smallest n of
+tests/test_mesh_collectives.py: the G1 sum (which compiles no pairing) in
+tier-1, the two randomized checks `slow` (JAX's mesh pairing programs
+compile for more than 20 minutes on the CPU).
 """
 import numpy as np
 import pytest
@@ -270,59 +273,121 @@ def _jax_pairing_words(qx, qy, px, py):
     return q, p
 
 
-@pytest.mark.slow
-def test_collectives_match_jax_on_its_mesh(limb_backend):
-    """The port's three collectives (4 gloo ranks, and 2-rank sub-meshes)
-    against the JAX package's on its 8-device CPU mesh, on the inputs of
-    tests/test_mesh_collectives.py carried across as words: the G1 sum of
-    [1]G .. [64]G, the ungrouped check in both forms and the grouped one,
-    each valid and with one item's pubkey coordinates swapped."""
+def _jax_mesh():
     import jax
 
-    from consensus_specs_tpu.crypto.bls_jax import bench_grouped_pairing_args, bench_pairing_args
-    from consensus_specs_tpu.parallel import collectives as JC
     from consensus_specs_tpu.parallel.mesh import make_mesh
 
-    mesh = make_mesh(jax.devices()[:8])
-    zs = [int(z) for z in np.random.default_rng(13).integers(1, 2**63, 32, dtype=np.int64)]
-    jz = np.array([[(z >> i) & 1 for i in range(64)] for z in zs], dtype=bool)
+    return make_mesh(jax.devices()[:8])
 
-    def swapped(px, py, at):
-        px, py = np.asarray(px).copy(), np.asarray(py).copy()
-        px[at], py[at] = py[at].copy(), px[at].copy()
-        return jax.numpy.asarray(px), jax.numpy.asarray(py)
+
+def _jax_zbits(n):
+    """(n scalars as ints, JAX's (n, 64) bool bits of them): one seeded draw
+    for every collective's comparison."""
+    zs = [int(z) for z in np.random.default_rng(13).integers(1, 2**63, 32, dtype=np.int64)][:n]
+    return zs, np.array([[(z >> i) & 1 for i in range(64)] for z in zs], dtype=bool)
+
+
+def _swapped(px, py, at):
+    """One item's G1 coordinates swapped (tests/test_mesh_collectives.py's
+    tampering)."""
+    import jax
+
+    px, py = np.asarray(px).copy(), np.asarray(py).copy()
+    px[at], py[at] = py[at].copy(), px[at].copy()
+    return jax.numpy.asarray(px), jax.numpy.asarray(py)
+
+
+# The port's collectives held against the JAX package's on its 8-device CPU
+# mesh, one test a collective, on the inputs of tests/test_mesh_collectives.py
+# (its smallest n) carried across as words; the port runs on gloo ranks while
+# this process runs JAX's program. The G1 sum compiles no pairing and comes
+# first.
+
+
+def test_g1_mesh_sum_matches_jax_on_its_mesh(limb_backend):
+    """`g1_mesh_sum` of [1]G .. [32]G on 1, 2 and 4 gloo ranks equals JAX's
+    `g1_mesh_sum` on its 8-device mesh (n = 32, the smallest n of
+    tests/test_mesh_collectives.py)."""
+    from consensus_specs_tpu.parallel import collectives as JC
+
+    pts, _ = C.g1_small_multiples(32, "cpu")
+
+    def jax_sum():
+        jpts, _ = JC.g1_small_multiples(32)
+        gx, gy = K.g1_to_affine(JC.g1_mesh_sum(jpts, _jax_mesh()))
+        return K.F.from_mont_int(np.asarray(gx)), K.F.from_mont_int(np.asarray(gy))
+
+    ranks, j_sum = run_ranks(mesh_workers.g1_sum_ranks, 4, "gloo", "cpu", {"multiples": pts},
+                             meanwhile=jax_sum)
+    assert j_sum == _g1(32 * 33 // 2)
+    for r in ranks:
+        assert set(r["multiples"].values()) == {j_sum}
+
+
+@pytest.mark.slow
+def test_pairing_check_rlc_mesh_matches_jax_on_its_mesh(limb_backend):
+    """`pairing_check_rlc_mesh` on 2 gloo ranks against JAX's on its mesh:
+    n = 16 over 4 messages, both forms (P2 = -G1 collapsed, and general),
+    valid and with item 3's pubkey coordinates swapped."""
+    import jax
+
+    from consensus_specs_tpu.crypto.bls_jax import bench_pairing_args
+    from consensus_specs_tpu.parallel import collectives as JC
 
     n = 16
+    zs, jz = _jax_zbits(n)
     qx, qy, px, py, q2x, q2y, p2x, p2y = bench_pairing_args(n, distinct=4)
-    ungrouped, want = {}, {}
-    for tag, (ax, ay) in (("valid", (px, py)), ("swapped", swapped(px, py, 3))):
+    cases, jax_args = {}, {}
+    for tag, (ax, ay) in (("valid", (px, py)), ("swapped", _swapped(px, py, 3))):
         for neg in (True, False):
             name = f"{tag}_{'neg' if neg else 'general'}"
-            want[name] = bool(np.asarray(JC.pairing_check_rlc_mesh(
-                mesh, qx, qy, ax, ay, q2x, q2y, p2x, p2y, jax.numpy.asarray(jz[:n]),
-                p2_is_neg_g1=neg)))
+            jax_args[name] = (qx, qy, ax, ay, neg)
             q1, p1 = _jax_pairing_words(qx, qy, ax, ay)
             q2, p2 = _jax_pairing_words(q2x, q2y, p2x, p2y)
-            ungrouped[name] = (q1, p1, q2, p2, zbits_from_ints(zs[:n]), neg)
+            cases[name] = (q1, p1, q2, p2, zbits_from_ints(zs), neg)
+
+    def jax_verdicts():
+        mesh = _jax_mesh()
+        return {name: bool(np.asarray(JC.pairing_check_rlc_mesh(
+            mesh, a, b, c, d, q2x, q2y, p2x, p2y, jax.numpy.asarray(jz), p2_is_neg_g1=neg)))
+            for name, (a, b, c, d, neg) in jax_args.items()}
+
+    ranks, want = run_ranks(mesh_workers.mesh_check_ranks, 2, "gloo", "cpu", "rlc", cases,
+                            meanwhile=jax_verdicts)
+    assert want == {"valid_neg": True, "valid_general": True, "swapped_neg": False,
+                    "swapped_general": False}
+    for r in ranks:
+        assert r == want
+
+
+@pytest.mark.slow
+def test_pairing_check_rlc_grouped_mesh_matches_jax_on_its_mesh(limb_backend):
+    """`pairing_check_rlc_grouped_mesh` on 2 gloo ranks against JAX's on its
+    mesh: n = 32 over D = 8 messages, valid and with item 11's pubkey
+    coordinates swapped."""
+    import jax
+
+    from consensus_specs_tpu.crypto.bls_jax import bench_grouped_pairing_args
+    from consensus_specs_tpu.parallel import collectives as JC
+
+    zs, jz = _jax_zbits(32)
     (gqx, gqy, gpx, gpy, gq2x, gq2y), seg = bench_grouped_pairing_args(32, 8)
-    grouped = {}
-    for tag, (ax, ay) in (("valid", (gpx, gpy)), ("swapped", swapped(gpx, gpy, 11))):
-        want[f"grouped_{tag}"] = bool(np.asarray(JC.pairing_check_rlc_grouped_mesh(
-            mesh, gqx, gqy, ax, ay, gq2x, gq2y, jax.numpy.asarray(jz), seg)))
+    cases, jax_args = {}, {}
+    for tag, (ax, ay) in (("valid", (gpx, gpy)), ("swapped", _swapped(gpx, gpy, 11))):
+        jax_args[tag] = (ax, ay)
         q1 = torch.stack([convert.f2_from_jax(gqx), convert.f2_from_jax(gqy)], 1)
         q2, p1 = _jax_pairing_words(gq2x, gq2y, ax, ay)
-        grouped[tag] = (q1, p1, q2, zbits_from_ints(zs), torch.from_numpy(np.asarray(seg)))
-    jpts, _ = JC.g1_small_multiples(64)
-    gx, gy = K.g1_to_affine(JC.g1_mesh_sum(jpts, mesh))
-    j_sum = (K.F.from_mont_int(np.asarray(gx)), K.F.from_mont_int(np.asarray(gy)))
-    pts, _ = C.g1_small_multiples(64, "cpu")
-    ranks = run_ranks(mesh_workers.collectives_ranks, 4, "gloo", "cpu", {"multiples": pts},
-                      ungrouped, grouped)
-    assert want["valid_neg"] and want["valid_general"] and want["grouped_valid"]
-    assert not (want["swapped_neg"] or want["swapped_general"] or want["grouped_swapped"])
+        cases[tag] = (q1, p1, q2, zbits_from_ints(zs), torch.from_numpy(np.asarray(seg)))
+
+    def jax_verdicts():
+        mesh = _jax_mesh()
+        return {tag: bool(np.asarray(JC.pairing_check_rlc_grouped_mesh(
+            mesh, gqx, gqy, ax, ay, gq2x, gq2y, jax.numpy.asarray(jz), seg)))
+            for tag, (ax, ay) in jax_args.items()}
+
+    ranks, want = run_ranks(mesh_workers.mesh_check_ranks, 2, "gloo", "cpu", "grouped", cases,
+                            meanwhile=jax_verdicts)
+    assert want == {"valid": True, "swapped": False}
     for r in ranks:
-        assert set(r["g1"]["multiples"].values()) == {j_sum}
-    for r in ranks[:2]:
-        assert r["ungrouped"] == {k: v for k, v in want.items() if not k.startswith("grouped")}
-    for r in ranks[2:]:
-        assert r["grouped"] == {"valid": want["grouped_valid"], "swapped": want["grouped_swapped"]}
+        assert r == want

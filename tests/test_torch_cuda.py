@@ -815,7 +815,7 @@ def _rns_operands(m, seed, dev):
 
 
 @pytest.mark.parametrize("op", range(11))
-@pytest.mark.parametrize("m", [1, 130])
+@pytest.mark.parametrize("m", [1, 2, 33, 130, 256, 1024])
 def test_rns_ops_kernel_matches_plain(cuda, op, m):
     """Every op code of K24 bit-equal, channel for channel, to its plain
     version on the same CUDA tensors; one counted launch."""
@@ -849,6 +849,20 @@ def test_rns_mont_reduce_at_the_alpha_boundary(cuda):
     assert torch.equal(got, R.rns_ops_plain(R.OP_MONT_REDUCE, t))
     ints = [R.from_mont_int(r) for r in t.cpu().numpy()]
     assert R.mont_batch_to_ints(got) == [x * pow(R.M_A, -1, R.P) % R.P for x in ints]
+
+
+def test_rns_mont_reduce_at_the_alpha_boundary_in_a_warp_block(cuda):
+    """The alpha-boundary inputs again, at M = 1,024 (256 blocks of four
+    warps), beside wide products: the warp-wide K24 equals its plain
+    version on every element."""
+    from consensus_specs_tpu_torch.ops import fp_rns as R
+
+    qs = [R.M_A // 4 + k for k in range(-60, 61)]
+    qs += [R.M_A // 4 + int(R.M_A * f) for f in (2**-20, -2**-20, 2**-23, -2**-23)]
+    t = _rns_residues([(-q * R.P) % R.M_A for q in qs], cuda)
+    a, b = _rns_operands(1024 - t.shape[0], 7, cuda)
+    t = torch.cat([t, R.rns_ops_plain(R.OP_MUL_WIDE, a, b)])
+    assert torch.equal(R.rns_ops(R.OP_MONT_REDUCE, t), R.rns_ops_plain(R.OP_MONT_REDUCE, t))
 
 
 def test_rns_ops_wrapper_on_the_card(cuda):
@@ -898,8 +912,9 @@ def test_rns_towers_on_card_equal_cpu(cuda):
 def test_rns_flush_on_card_matches_limb(cuda):
     """The flush under the "rns" field backend on the card: the randomized
     check over 20 checks passes and records as the limb path, one bad
-    signature is attributed to its index as on the limb path; K24 runs and
-    no K8-K12 launch."""
+    signature is attributed to its index as on the limb path; it runs on
+    K9-K12's RNS instances (K24 launches no more than the conversions: the
+    packing is on the host, so none) and no limb K8-K12 launch."""
     p, q, s = _bls_items(20, 20, 22)
     pts = tbls.affine_from_words(p, False)
     hs = tbls.affine_from_words(q, True)
@@ -919,9 +934,98 @@ def test_rns_flush_on_card_matches_limb(cuda):
         tbls.set_field_backend("limb")
     assert got[0].all() and limb[0].all() and got[1] == limb[1]
     assert np.flatnonzero(~got[2]).tolist() == np.flatnonzero(~limb[2]).tolist() == [13]
-    assert build.LAUNCHES["rns_ops"] > 0
+    assert build.LAUNCHES["rns_ops"] == 0
+    assert all(build.LAUNCHES[f"{k}_rns"] > 0 for k in ("rlc_ladders", "point_sums",
+                                                        "miller_loop", "final_exp"))
     assert not any(build.LAUNCHES[k] for k in ("fp_ops", "rlc_ladders", "point_sums",
                                                 "miller_loop", "final_exp"))
+
+
+# --- K9-K12's RNS instances (one warp an item over csrc/fp_rns.cuh) -----------
+
+
+def _rns_bls_items(n, messages, seed):
+    """`_bls_items` as RNS residues (the same points)."""
+    from consensus_specs_tpu_torch.engine.convert import rns_from_words
+
+    return tuple(rns_from_words(t) for t in _bls_items(n, messages, seed))
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("n", [1, 5])
+def test_rns_ladders_kernel_matches_plain(cuda, affine, n):
+    """K9's RNS instance bit-equal to the RNS plain version: an odd batch
+    and one that does not fill a block's four warps, z with 0, 1 and
+    2^64 - 1; the G1-only launch gives the same G1 points."""
+    p, _, s = _rns_bls_items(n, n, 31)
+    zb = bls_torch.zbits_from_ints([0, 1, 2**64 - 1, 2**32, 987654321987654321][:n])
+    with _counted("rlc_ladders_rns"):
+        got = tbls.rlc_ladders(p.to(cuda), s.to(cuda), zb.to(cuda), affine)
+    for g, w in zip(got, tbls.rlc_ladders_plain(p, s, zb, affine)):
+        assert torch.equal(g.cpu(), w)
+    g1_only = tbls.rlc_ladders(p.to(cuda), None, zb.to(cuda), affine)
+    assert g1_only[1] is None and torch.equal(g1_only[0], got[0])
+
+
+@pytest.mark.parametrize("g2", [False, True])
+def test_rns_point_sums_kernel_matches_plain(cuda, g2):
+    """K10's RNS instance (16 warps a segment) bit-equal to the plain
+    version in its order: an empty segment, segments of 3 and 37 (more
+    points than warps), and a point at infinity (z = 0) among them."""
+    p, _, s = _rns_bls_items(40, 40, 32)
+    zb = bls_torch.zbits_from_ints([0] + list(range(2, 41)))
+    g1, g2j = tbls.rlc_ladders_plain(p, s, zb, affine_g1=False)
+    pts = g2j if g2 else g1
+    off = torch.tensor([0, 40] if g2 else [0, 3, 3, 40])
+    with _counted("point_sums_rns"):
+        got = tbls.point_sums(pts.to(cuda), off.to(cuda))
+    assert torch.equal(got.cpu(), tbls.point_sums_plain(pts, off))
+
+
+def test_rns_miller_and_final_exp_kernels_match_plain(cuda):
+    """K11 and K12's RNS instances bit-equal to the plain version: 5 Miller
+    loops (a block of four warps and one more), the batch mode with m2, the
+    tail over 4 values and an extra; the verdicts agree with the limb
+    kernels'."""
+    p, q, _ = _rns_bls_items(5, 5, 33)
+    with _counted("miller_loop_rns"):
+        m = tbls.miller_loop(q.to(cuda), p.to(cuda))
+    mp = tbls.miller_loop_plain(q, p)
+    assert torch.equal(m.cpu(), mp)
+    with _counted("final_exp_rns"):
+        cube, ok = tbls.final_exp_batch(m[:2], m[2:4])
+    wc, wok = tbls.final_exp_batch_plain(mp[:2], mp[2:4])
+    assert torch.equal(cube.cpu(), wc) and torch.equal(ok.cpu(), wok)
+    with _counted("final_exp_rns"):
+        cube, ok = tbls.final_exp_tail(m[:-1], m[-1])
+    wc, wok = tbls.final_exp_tail_plain(mp[:-1], mp[-1])
+    assert torch.equal(cube.cpu(), wc) and bool(ok) == bool(wok)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_rns_pairing_check_rlc_on_card(cuda, grouped):
+    """Both randomized-check paths on the RNS instances: a valid batch
+    passes, a bad signature fails, an empty segment fails; the batch check
+    flags the bad item; no limb K9-K12 launch."""
+    p, q, s = _rns_bls_items(12, 3 if grouped else 12, 4)
+    zb = bls_torch.zbits_from_ints(np.random.default_rng(5).integers(1, 2**63, 12))
+    seg = torch.tensor([i % 3 for i in range(12)], device=cuda) if grouped else None
+    reps = q[:3] if grouped else q
+    args = (reps.to(cuda), p.to(cuda))
+    build.reset_launches()
+    assert bool(tbls.pairing_check_rlc(*args, s.to(cuda), zb.to(cuda), seg))
+    bad = s.clone()
+    bad[7] = s[6]
+    assert not bool(tbls.pairing_check_rlc(*args, bad.to(cuda), zb.to(cuda), seg))
+    if grouped:
+        extra = torch.cat([reps, q[:1]]).to(cuda)  # a fourth message, no member
+        assert not bool(tbls.pairing_check_rlc(extra, p.to(cuda), s.to(cuda), zb.to(cuda), seg))
+    neg = tbls.neg_g1_words(cuda, 64)[None].expand(12, 2, 64).contiguous()
+    ok = tbls.pairing_check_batch(q.to(cuda), p.to(cuda), bad.to(cuda), neg)
+    assert ok.cpu().tolist() == [i != 7 for i in range(12)]
+    torch.cuda.synchronize()
+    assert not any(build.LAUNCHES[k] for k in ("rlc_ladders", "point_sums", "miller_loop",
+                                                "final_exp", "rns_ops"))
 
 
 # --- slice 10: K25, K3's phases, the mesh path at world size 1 on NCCL ------

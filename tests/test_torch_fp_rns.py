@@ -214,8 +214,8 @@ def test_alpha_is_the_channel_order_float32_sum():
 
 
 def test_extension_equals_the_direct_64_bit_sum():
-    """The plain version's int8 split reaches the canonical residue that K24's
-    64-bit accumulation computes: (sum_i sigma_i·C[i][j] - alpha·M) mod m_j."""
+    """The plain version's extension reaches the canonical residue of JAX's
+    (and K24's) sum: (sum_i sigma_i·C[i][j] - alpha·M) mod m_j."""
     rng = np.random.default_rng(8)
     for tag, ext, offset in (("ab", R._EXT_AB, -0.25), ("ba", R._EXT_BA, 0.25)):
         src = R._MA if tag == "ab" else R._MB
