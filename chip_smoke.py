@@ -25,8 +25,10 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and 2^64 - 1 and an empty segment, and two pairing cubes against the
    copied oracle; K13 g1_msm on 8 items (64- and 255-bit scalars, windows 4
    and 5, a zero scalar, 2^64 - 1, a repeated point, a P + (-P) pair) and
-   K14 g1_subgroup on 8 points (a pad and the on-curve (0, 2) outside the
-   subgroup); K19 tree_root_batch at (K, C) = (1, 16384), (64, 1024),
+   K14 g1_subgroup on 8 points (a pad and
+   the on-curve (0, 2) outside the subgroup) and on
+   `msm_synthetic.subgroup_edge_points` (keys, (0, +-2), random curve
+   points, cofactor parts, keys plus (0, 2), pads); K19 tree_root_batch at (K, C) = (1, 16384), (64, 1024),
    (256, 64), (1, 1) and (2, 2) (and the first against a hashlib fold); K20
    multiproof_heap and K21 multiproof_siblings at the read lane's (K, C, Q)
    = (8, 2**18, 512) and at (1, 1, 4), (2, 2, 8), (4, 64, 16) with shallow
@@ -195,7 +197,8 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and 65 and its batch at 256); K13 at (128, 64) and (512, 255), K14 and
    K10's aggregate over a 512-key committee, each bit-equal to its plain
    version there, their least time from the cost functions' point
-   operations; K15-K18 at the three fork-choice parts' shapes, their least
+   operations (K14: its chain's, the r-ladder's beside them, and
+   ptxas's registers, stack and spills); K15-K18 at the three fork-choice parts' shapes, their least
    time from the bytes read and written once or the operations the data
    needs, and K16 beside `index_add_`; K19 at the historical append's
    (1, 16384) (the epoch's own vectors) and the Merkle lane's (64, 1024)
@@ -203,7 +206,8 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K20 and K21 on the read lane's first flush (8 trees of 2**18 chunks, 512
    queries), bit-equal to their plain versions there, K20's least time
    K*(C-1) hashes of K1's SASS instructions, K21's its rows read and written
-   once, K21 beside `index_select` over the rows it gathers; K22 at the
+   once, K21 beside `index_select` over the rows it gathers by CUDA events,
+   by torch.profiler's device time and by the host clock a call; K22 at the
    DAS lane's (64, 32,768) forward, (1, 16,384) inverse and (1, 32,768)
    forward, and K23's product at M = 32,768 and its inverse there, their
    least time from (n/2)·log2 n Fr products (plus n for the 1/n scale) or M
@@ -231,6 +235,7 @@ from __future__ import annotations
 import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -354,6 +359,32 @@ def _opcode_mix(ops: list, top: int) -> list:
 
     return Counter(re.sub(r"^@!?U?P[T0-9]+\s+", "", op).split(None, 1)[0].split(".")[0]
                    for op in ops).most_common(top)
+
+
+PTXAS: dict = {}  # csrc name -> ptxas's report of this run's build (phase 2)
+
+
+def ptxas_function(name: str, symbol: str) -> dict:
+    """Registers, stack and spills ptxas reported for the kernel of
+    csrc/<name>.cu whose mangled name contains `symbol`, from this run's
+    build ({} where the library was not built in this run)."""
+    lines = PTXAS.get(name, "").splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and symbol in line.split()[-1]:
+            out = {}
+            for nxt in lines[i + 1:i + 3]:
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", nxt)
+                if m:
+                    out.update(stack_frame=int(m[1]), spill_stores=int(m[2]),
+                               spill_loads=int(m[3]))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m[1])
+                    m = re.search(r"(\d+) bytes cumulative stack size", nxt)
+                    out["cumulative_stack"] = int(m[1]) if m else 0
+            return out
+    return {}
 
 
 def sass_instructions(name: str, kernel: str) -> int:
@@ -505,11 +536,13 @@ def check_msm_kernels(dev, err: dict) -> None:
     """K13 and K14 each bit-equal to its plain version on the card at 8
     items: K13 over 64- and 255-bit scalars at windows 4 and 5 with a zero
     scalar, 2^64 - 1, a repeated point and a P + (-P) pair that cancels; K14
-    over 8 points with a pad (Z = 0) and the on-curve (0, 2) outside the
-    subgroup."""
+    over 8 points with a pad (Z = 0) and the on-curve (0, 2)
+    outside the subgroup, and over `msm_synthetic.subgroup_edge_points`:
+    order-3 points, random curve points, cofactor parts, keys plus (0, 2)."""
     import torch
 
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto import msm_synthetic
     from consensus_specs_tpu_torch.ops import bls12 as B
 
     F1 = oracle.FP_FIELD
@@ -543,14 +576,22 @@ def check_msm_kernels(dev, err: dict) -> None:
     require(torch.equal(got, plain) and B._affine_or_none(plain) is None,
             "K13 g1_msm on P + (-P) differs from its plain version or is not the identity")
     sub = torch.cat([jac[:6], B._jacobian_words([(0, 2)], 1, dev)])
-    got, plain = B.g1_subgroup_check(sub), B.g1_subgroup_check_plain(sub)
-    err["g1_subgroup"] = max_abs_err(got.int(), plain.int())
-    require(torch.equal(got, plain) and plain.tolist() == [True] * 6 + [False, True],
-            f"K14 g1_subgroup differs from its plain version: {got.tolist()}")
+    edge, member = msm_synthetic.subgroup_edge_points(11)
+    edge_words = B._jacobian_words(edge, 12, dev)
+    plain, plain_edge = B.g1_subgroup_check_plain(sub), B.g1_subgroup_check_plain(edge_words)
+    require(plain.tolist() == [True] * 6 + [False, True]
+            and plain_edge.tolist() == member + [True] * 12,
+            "K14's plain chain != the oracle's [r]·P == infinity")
+    for pts, want in ((sub, plain), (edge_words, plain_edge)):
+        got = B.g1_subgroup_check(pts)
+        err["g1_subgroup"] = max(err["g1_subgroup"], max_abs_err(got.int(), want.int()))
+        require(torch.equal(got, want),
+                f"K14 g1_subgroup differs from its plain version: {got.tolist()}")
     print("check K13-K14: g1_msm bit-equal to its plain version at 8 items (64 and 255 bits, "
           "w = 4 and 5, a zero scalar, 2^64 - 1, a repeated point, P + (-P)) and = the oracle, "
-          "and on P + (-P) alone (the identity); g1_subgroup bit-equal with a pad and (0, 2)",
-          flush=True)
+          "and on P + (-P) alone (the identity); g1_subgroup "
+          "bit-equal with a pad and (0, 2), and on 30 keys, (0, +-2), 12 random curve points, "
+          "4 cofactor parts, 4 keys + (0, 2) and 12 pads (= the oracle)", flush=True)
 
 
 def timed(fn):
@@ -1372,9 +1413,11 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
     one 512-key committee. Each held bit-equal to its plain version there,
     timed beside it; the least time from the point operations the inputs
     need (K13: only the items and window digits that are not zero, so the
-    pads count nothing) times the plain version's Fp products an operation
-    (one double, one complete add of distinct points) times K8's
-    instructions a product. Returns (the K13 and K14 rows, K10's aggregate shape)."""
+    pads count nothing; K14: its chain's doubles, adds and compare products,
+    the r-ladder's beside it as `ladder_bound_ms`) times the plain version's
+    Fp products an operation (one double, one complete add of distinct
+    points) times K8's instructions a product; K14's row also holds ptxas's
+    registers, stack and spills. Returns (the K13 and K14 rows, K10's aggregate shape)."""
     import torch
 
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
@@ -1405,8 +1448,8 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
 
     keys = B._jacobian_words([agg_in["keys"][pk] for pk in agg_in["calls"][0][0]], 0, dev)
 
-    def ops_bound(doubles, adds):
-        muls = doubles * per_double + adds * per_add
+    def ops_bound(doubles, adds, muls=0):
+        muls += doubles * per_double + adds * per_add
         return dict(point_ops=doubles + adds, fp_muls=muls,
                     bound_ms=1e3 * muls * sass_mul / LANE_INSTR_PER_S, bound_by="operations")
 
@@ -1416,9 +1459,12 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
         c = B.g1_msm_data_op_counts(a[1], a[2])
         shapes.append(("g1_msm", label, lambda a=a: B.g1_msm(*a), lambda a=a: B.g1_msm_plain(*a),
                        ops_bound(c["doubles"], c["adds"])))
-    c = B.g1_ladder_op_counts(keys.shape[0], 255)
+    c = B.g1_subgroup_chain_op_counts(keys.shape[0])
+    ladder = B.g1_ladder_op_counts(keys.shape[0], 255)
     shapes.append(("g1_subgroup", f"n={keys.shape[0]}", lambda: B.g1_subgroup_check(keys),
-                   lambda: B.g1_subgroup_check_plain(keys), ops_bound(c["doubles"], c["adds"])))
+                   lambda: B.g1_subgroup_check_plain(keys),
+                   dict(ops_bound(c["doubles"], c["adds"], c["fp_muls"]),
+                        ladder_bound_ms=ops_bound(ladder["doubles"], ladder["adds"])["bound_ms"])))
     shapes.append(("point_sums", f"G1 aggregate n={keys.shape[0]} D=1",
                    lambda: B.g1_aggregate(keys),
                    lambda: B.point_sums_plain(keys, torch.tensor([0, keys.shape[0]]))[0],
@@ -1438,6 +1484,11 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
             print(f"kernel {name} ({label}): ms={ms:.5f} bound_ms={bound['bound_ms']:.6f} "
                   f"(operations: {bound['point_ops']} point ops, {bound['fp_muls']} Fp "
                   f"products) plain_ms={plain_ms:.3f}", flush=True)
+        k14 = rows["g1_subgroup"][0]
+        k14["ptxas"] = ptxas_function("msm", "g1_subgroup_kernelI5fp_g4")
+        print(f"kernel g1_subgroup (n={keys.shape[0]}): bound_ms={k14['bound_ms']:.6f} (the "
+              f"chain's {k14['fp_muls']} Fp products) ladder_bound_ms="
+              f"{k14['ladder_bound_ms']:.6f}; ptxas {k14['ptxas']}", flush=True)
     out = []
     for name, src, replaces in (
             ("g1_msm", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1291"),
@@ -2038,10 +2089,13 @@ def multiproof_rows(inputs, launches, err, sass_sha, bound) -> list:
     """K20 and K21 at the read lane's main shape (the first flush's inputs:
     8 trees of 2^18 chunks, 512 queries), each held bit-equal to its plain
     version on the same tensors, beside its bound and, for K21, one
-    `index_select` over the rows it gathers."""
+    `index_select` over the rows it gathers, by CUDA events, by the device
+    time alone (torch.profiler) and by the host clock a call."""
     import torch
 
+    from consensus_specs_tpu_torch.kernels import build
     from consensus_specs_tpu_torch.ops import multiproof as tmp
+    from consensus_specs_tpu_torch.profile_main_path import profile_window
 
     words, tree_ids, gidx = inputs
     k, c, q = words.shape[0], words.shape[1], gidx.shape[0]
@@ -2068,13 +2122,59 @@ def multiproof_rows(inputs, launches, err, sass_sha, bound) -> list:
                plain_ms=time_ms(lambda: tmp.multiproof_heap_plain(words), 2),
                library_ms=None, library_null_reason="no PyTorch call hashes",
                hashes=k * (c - 1), **bound(sass_sha * k * (c - 1), 32 * k * c + 32 * k * 2 * c))
+    # K21 beside index_select by three clocks: CUDA events around 50
+    # back-to-back calls (in turns: K21, index_select, index_select, K21),
+    # each one's device time alone (torch.profiler), and the host clock a
+    # call over 500 calls (its host cost: allocation, views, ctypes, launch)
+    gather = lambda: tmp.multiproof_gather(heap, tree_ids, gidx, d)  # noqa: E731
+    isel = lambda: flat.index_select(0, idx)  # noqa: E731
+    events = {"k21": [], "isel": []}
+    for name in ("k21", "isel", "isel", "k21"):
+        events[name].append(time_ms(gather if name == "k21" else isel, 50))
+
+    def device_ms(fn, reps=50):
+        _, prof = profile_window(lambda: [fn() for _ in range(reps)], torch)
+        return 1e-3 * sum(r[2] for r in prof) / reps
+
+    def host_ms(fn, reps=500):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
     k21 = dict(name="multiproof_siblings", replaces="consensus_specs_tpu/ops/multiproof_jax.py:29",
-               **common, ms=time_ms(lambda: tmp.multiproof_gather(heap, tree_ids, gidx, d), 50),
+               **common, ms=sum(events["k21"]) / 2, ms_rounds=events["k21"],
+               device_ms=device_ms(gather), host_ms=host_ms(gather),
                plain_ms=time_ms(lambda: tmp.multiproof_gather_plain(heap, tree_ids, gidx, d), 5),
-               library_ms=time_ms(lambda: flat.index_select(0, idx), 50),
+               library_ms=sum(events["isel"]) / 2, library_ms_rounds=events["isel"],
+               library_device_ms=device_ms(isel), library_host_ms=host_ms(isel),
                library_note="index_select over the precomputed rows; excludes the index "
                             "arithmetic", rows=rows_out,
+               ptxas=ptxas_function("multiproof", "multiproof_siblings_kernel"),
                **bound(0, 2 * 32 * rows_out + 8 * q))
+    # the wrapper's host cost by part, the host clock a call as above; the
+    # direct launches' return codes are all checked and their buffer held
+    # equal to the wrapper's outputs
+    fn = build.entry("multiproof", "multiproof_siblings", 4, 3)
+    out = heap.new_empty((rows_out, 8))
+    rcs = set()
+    k21["host_parts_ms"] = dict(
+        allocation=host_ms(lambda: heap.new_empty((rows_out, 8))),
+        views=host_ms(lambda: out.split_with_sizes((q * d, q, k))[0].view(q, d, 8)),
+        launch=host_ms(lambda: rcs.add(fn(heap.data_ptr(), tree_ids.data_ptr(), gidx.data_ptr(),
+                                          out.data_ptr(), q, d, k, c, build.stream_ptr(heap)))))
+    for rc in rcs:
+        build.check(rc, "multiproof_siblings (launched directly)")
+    require(torch.equal(out, torch.cat([t.reshape(-1, 8) for t in gather()])),
+            "K21 launched directly differs from its wrapper's outputs")
+    print(f"kernel multiproof_siblings ({shape}): events ms {events['k21']}, index_select "
+          f"{events['isel']}; device (torch.profiler) {k21['device_ms']:.6f} ms, index_select "
+          f"{k21['library_device_ms']:.6f}; host a call {k21['host_ms']:.6f} ms, index_select "
+          f"{k21['library_host_ms']:.6f} (K21's by part {k21['host_parts_ms']}); ptxas "
+          f"{k21['ptxas']}", flush=True)
     for row in (k20, k21):
         row.update(launches=launches[row["name"]], max_abs_err=err[row["name"]],
                    bit_equal=err[row["name"]] == 0.0)
@@ -2630,6 +2730,7 @@ def main(argv=None) -> int:
     # 2. build
     t0 = time.perf_counter()
     reports = build.build_all()
+    PTXAS.update(reports)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for name, text in reports.items():
         for line in text.splitlines():

@@ -19,6 +19,10 @@ files, no network).
   scalar multiplication each instead of an MSM over the setup
   (tests/test_torch_kzg_batch.py holds them equal to `kzg.commit`,
   `prove_coset` and `prove_degree_bound` at a small size).
+- `subgroup_edge_points`: curve points in and out of G1 for the subgroup
+  check (K14): keys, the order-3 points (0, +-2), random points of E(Fp)
+  (cofactor components), their cofactor parts [r]·Q alone, and keys plus
+  (0, 2).
 """
 from __future__ import annotations
 
@@ -54,6 +58,36 @@ def _affine_all(points) -> list:
         zi2 = zi * zi % P
         out[i] = (x * zi2 % P, y * zi2 * zi % P)
     return out
+
+
+def subgroup_edge_points(seed: int, keys: int = 30, curve: int = 12, cofactor: int = 4,
+                         mixed: int = 4) -> tuple:
+    """(affine points, whether each is in G1), from numpy's default_rng(seed):
+    `keys` multiples of G1 by 62-bit scalars; (0, 2) and (0, -2), of order 3;
+    `curve` points of E(Fp) with random x (x^3 + 4 a square), which carry
+    cofactor components; `cofactor` points [r]·Q of those, the cofactor part
+    alone; `mixed` keys plus (0, 2). Membership from [r]·P == infinity in the
+    oracle's integers."""
+    F, P = oracle.FP_FIELD, oracle.P
+    rng = np.random.default_rng(seed)
+    pts = [oracle.pt_to_affine(F, oracle.pt_mul(F, oracle.G1_GEN, int(k)))
+           for k in rng.integers(1, 2**62, keys, dtype=np.int64)]
+    pts += [(0, 2), (0, P - 2)]
+    rand = []
+    while len(rand) < curve:
+        x = int.from_bytes(rng.bytes(48), "little") % P
+        y = oracle.fp_sqrt((x ** 3 + oracle.B_G1) % P)
+        if y is not None:
+            rand.append((x, y))
+    pts += rand
+    pts += [oracle.pt_to_affine(F, oracle.pt_mul(F, oracle.pt_from_affine(F, q), oracle.R))
+            for q in rand[:cofactor]]
+    pts += [oracle.pt_to_affine(F, oracle.pt_add(F, oracle.pt_from_affine(F, k),
+                                                 oracle.pt_from_affine(F, (0, 2))))
+            for k in pts[:mixed]]
+    member = [oracle.pt_is_inf(oracle.pt_mul(F, oracle.pt_from_affine(F, q), oracle.R))
+              for q in pts]
+    return pts, member
 
 
 def block_aggregate_inputs(seed: int) -> dict:

@@ -5,10 +5,10 @@
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py `g1_double` :641, `g1_add`
 // :661, `g2_double`/`g2_add` :892-956, `g1_scalar_mul_batch` :782 and
-// `g2_scalar_mul_batch` :957 (2-bit windows; also the r-ladder of
-// `_g1_subgroup_program` :1347), `_g1_jacobian_to_affine_batch`
-// :868, `g2_jacobian_to_affine` :1043. The formulas are JAX's. Its complete
-// add selects among the cases with masks; here the thread branches on them
+// `g2_scalar_mul_batch` :957 (2-bit windows), `_g1_jacobian_to_affine_batch`
+// :868, `g2_jacobian_to_affine` :1043, and `_g1_subgroup_program` :1347 (its
+// r-ladder by the shorter chain of `jac_in_g1`). The formulas are JAX's. Its
+// complete add selects among the cases with masks; here the thread branches on them
 // exactly as the selects decide: Z1 = 0 gives p2, else Z2 = 0 gives p1;
 // equal points (H = r = 0) give the double of p1; opposite points (H = 0,
 // r != 0) keep the add's X and Y with Z = 0. The window gathers reach all of
@@ -197,8 +197,7 @@ BLS_NOINLINE void jac_to_affine(F &x, F &y, const jac<F> &p) {
 // [z]·p with 2-bit windows over `nwin` windows of the little-endian words z
 // (digit w is bits 2w and 2w + 1): the table [0, p, 2p, 3p], the top window's
 // entry, then nwin - 1 times two doublings and one add of the window's entry.
-// K9 runs it over 64-bit z (32 windows), K14 over r (255 bits, padded to 256:
-// 128 windows), as JAX's g1_scalar_mul_batch pads an odd width.
+// K9 runs it over 64-bit z (32 windows).
 template <typename F>
 BLS_NOINLINE void jac_scalar_mul(jac<F> &r, const jac<F> &p, const uint32_t *z, int nwin) {
     jac<F> tab[4], acc;
@@ -216,4 +215,51 @@ BLS_NOINLINE void jac_scalar_mul(jac<F> &r, const jac<F> &p, const uint32_t *z, 
         jac_add(acc, acc, tab[d]);
     }
     r = acc;
+}
+
+// [|x|]·p (x the BLS parameter, X_ABS = |x|: 64 bits, 6 of them set):
+// from p (the top bit), for each lower bit a double, then a complete add of
+// p where the bit is set: 63 doubles and 5 adds. The add must be complete:
+// for a point with a small-order part the accumulator can be p, -p or
+// infinity.
+template <typename F>
+BLS_NOINLINE void jac_mul_x_abs(jac<F> &r, const jac<F> &p) {
+    jac<F> acc = p;
+#pragma unroll 1
+    for (int b = 62; b >= 0; --b) {
+        jac_double(acc, acc);
+        if ((X_ABS >> b) & 1) jac_add(acc, acc, p);
+    }
+    r = acc;
+}
+
+// r-subgroup membership of a point p on E(Fp) (M. Scott, ePrint 2021/1130,
+// as blst's POINTonE1_in_G1): p is in G1 iff phi(p) = -[x^2]·p, phi(X, Y, Z)
+// = (beta·X, Y, Z), beta the cube root of unity given (FP_BETA over the limb
+// field). Q = [|x|]·[|x|]·p = [x^2]·p (the signs of x cancel), and phi(p) =
+// -Q in Jacobian form without an inversion: beta·X·ZQ^2 = XQ·Z^2, Y·ZQ^3 =
+// -YQ·Z^3, ZQ != 0. 126 doubles, 10 adds and 9 products, where the r-ladder
+// took 255 doubles and 128 adds. Z = 0 (a pad) reports true. Off the curve
+// the answer can differ from [r]·p == infinity.
+template <typename F>
+BLS_NOINLINE bool jac_in_g1(const jac<F> &p, const F &beta) {
+    if (fis_zero(p.z)) return true;
+    jac<F> q;
+    jac_mul_x_abs(q, p);
+    jac_mul_x_abs(q, q);
+    if (fis_zero(q.z)) return false;
+    F zq2, zq3, zp2, zp3, l, t;
+    fsqr(zq2, q.z);
+    fmul(zq3, zq2, q.z);
+    fsqr(zp2, p.z);
+    fmul(zp3, zp2, p.z);
+    fmul(l, p.x, beta);
+    fmul(l, l, zq2);
+    fmul(t, q.x, zp2);
+    fsub(l, l, t);
+    bool same_x = fis_zero(l);
+    fmul(l, p.y, zq3);
+    fmul(t, q.y, zp3);
+    fadd(l, l, t);
+    return same_x & fis_zero(l);
 }

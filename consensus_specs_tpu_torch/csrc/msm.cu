@@ -19,18 +19,26 @@
 // Scalars cross as int32 words, LSB first, nwords = ceil(nbits / 32); bits at
 // or above nbits are ignored, as JAX reads only nbits of them.
 //
-// K14 g1_subgroup: per item [r]·P == infinity, one thread an item, the 2-bit
-// ladder of curve.cuh over r's 255 bits padded to 256 (JAX's
-// g1_scalar_mul_batch at :782 over `_r_order_bits`, `_g1_subgroup_program`
-// :1347). A Z = 0 input (a pad) reports 1.
+// K14 g1_subgroup: r-subgroup membership per item, the same boolean as
+// JAX's [r]·P == infinity (`_g1_subgroup_program` :1347, the ladder of
+// g1_scalar_mul_batch :782 over `_r_order_bits`), by curve.cuh's
+// `jac_in_g1`: phi(P) = -[x^2]·P, 126 doubles and 10 adds where the ladder
+// took 255 and 128. Domain: points on E(Fp) (ops/bls12.py builds them from
+// decompressed keys); a Z = 0 input (a pad) reports 1. Four lanes a key
+// (F = fp_g4, g1_lanes.cuh: a double's and an add's independent products side
+// by side); one thread a key (F = fp) took 1.86 ms at 512 keys on an H100
+// against the group's 0.96, and is not launched.
 //
 // Bound: operations (Fp products, about 1,200 SASS instructions each). K13's
 // tables and window sums spread over N and W threads, but its Horner tail is
 // (W - 1)(w + 1) point operations in one thread, latency-bound like K12's
-// tail; K14 runs one 128-window ladder a thread, 512 threads a committee.
+// tail. K14's chain is 1,051 products in one line a key, and a committee is
+// 512 keys: a key is latency-bound on the line; the lane group cuts the line
+// to 437 products' time.
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
+#include "g1_lanes.cuh"
 #include "stack.cuh"
 
 constexpr int MSM_THREADS = 64;
@@ -92,15 +100,19 @@ __global__ void msm_horner_kernel(const jac<fp> *__restrict__ sums, fp *out, int
     jac_to_affine(out[0], out[1], acc);
 }
 
-__global__ void g1_subgroup_kernel(const jac<fp> *__restrict__ pts, int *ok, long long n) {
-    long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
-    uint32_t r[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) r[k] = R_ORDER[k];
-    jac<fp> p = pts[i], q;
-    jac_scalar_mul(q, p, r, 128);
-    ok[i] = fp_is_zero(q.z) ? 1 : 0;
+// F::LANES threads a key; the group's first lane writes the verdict
+template <typename F>
+__global__ void g1_subgroup_kernel(const uint32_t *__restrict__ pts, int *ok, long long n) {
+    const long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / F::LANES;
+    if (i >= n) return;  // a whole group: n keys fill whole groups
+    jac<F> p;
+    F beta;
+    fload(p.x, pts + i * 36);
+    fload(p.y, pts + i * 36 + 12);
+    fload(p.z, pts + i * 36 + 24);
+    fload(beta, FP_BETA);
+    const bool in = jac_in_g1(p, beta);
+    if (threadIdx.x % F::LANES == 0) ok[i] = in ? 1 : 0;
 }
 
 // pts (n, 3, 12) Jacobian, sc (n, nwords) scalar words; tab (2^w, n, 3, 12)
@@ -130,8 +142,9 @@ extern "C" int g1_subgroup(const void *pts, void *ok, long long n, void *stream)
     if (e) return e;
     if (n > 0) {
         const int threads = 64;
-        g1_subgroup_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                             (cudaStream_t)stream>>>((const jac<fp> *)pts, (int *)ok, n);
+        const long long blocks = (n * fp_g4::LANES + threads - 1) / threads;
+        g1_subgroup_kernel<fp_g4><<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+            (const uint32_t *)pts, (int *)ok, n);
     }
     return (int)cudaGetLastError();
 }

@@ -23,12 +23,19 @@
 // is left. At the read lane's main shape (8, 2^18) that is two launches
 // (s = 10, then 8).
 //
-// K21 gathers the answers, one thread a 32-byte row: row i of query q is
-// heap[tree_q * 2C + (max(g_q >> i, 1) ^ 1)], the closed form of JAX's
-// clamped walk (`g ^ 1`, then `max(g >> 1, 1)`: past the root a query
-// reads row 1 ^ 1 = 0, the zero row); `nodes` is heap[tree * 2C + g] and
-// `roots` row 1 of each tree. Offsets are 64-bit: JAX's `tree_ids * 2C` is
-// int32 and overflows once K * 2C >= 2^31.
+// K21 gathers the answers into one (Q * D + Q + K, 8) buffer: the Q * D
+// siblings, then the Q nodes, then the K roots, each a 32-byte row. Row i of
+// query q is heap[tree_q * 2C + (max(g_q >> i, 1) ^ 1)], the closed form of
+// JAX's clamped walk (`g ^ 1`, then `max(g >> 1, 1)`: past the root a query
+// reads row 1 ^ 1 = 0, the zero row); the node is heap[tree * 2C + g] and a
+// root row 1 of its tree. One warp a query: lane j stores 16-byte half j & 1
+// of the query's row j >> 1 (its D siblings, then its node), so neighbouring
+// lanes store neighbouring halves and a query's D + 1 rows go out as
+// contiguous segments; the warps past the last query store the roots, 16
+// rows a warp. No division: the warp is the query, the lane the level and
+// half. Heap offsets are 64-bit (JAX's `tree_ids * 2C` is int32 and
+// overflows once K * 2C >= 2^31); the rest is 32-bit, since the rows
+// written, Q * D + Q + K, stay below 2^31 (the wrapper checks it).
 //
 // Bounds. K20: K * (C - 1) compressions pairs (64-byte hashes) at K1's SASS
 // count each, against K * C * 32 bytes read and K * 2C * 32 written; at
@@ -36,7 +43,8 @@
 // of a subtree leave most of a block's threads idle, as in K19; the first
 // level, half of all the hashes, runs every thread. K21: bytes, Q * D * 32
 // read and written (plus Q + K rows); it is a gather of a few hundred KB
-// and so one launch's latency.
+// and so one launch's latency, which the wrapper's host cost (one
+// allocation, one ctypes call) can exceed.
 #include <cuda_runtime.h>
 #include "merkle_rows.cuh"
 
@@ -106,48 +114,43 @@ extern "C" int multiproof_heap(const void* in, void* heap, long long k, long lon
     return (int)cudaGetLastError();
 }
 
-// One thread a 32-byte row: q * d siblings, then q nodes, then k roots.
+// One warp a query, then one warp for every 16 roots; out holds q * d
+// siblings, q nodes, k roots, as 16-byte halves.
 __global__ void multiproof_siblings_kernel(const uint4* __restrict__ heap,
                                            const int* __restrict__ tree_ids,
                                            const int* __restrict__ gindices,
-                                           uint4* __restrict__ siblings,
-                                           uint4* __restrict__ nodes, uint4* __restrict__ roots,
-                                           long long q, long long d, long long k, long long c) {
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long n_sib = q * d;
-    long long row;  // heap row, 64-bit
-    uint4* dst;
-    if (i < n_sib) {
-        const long long qi = i / d;
-        const int lvl = (int)(i % d);
-        const long long g = gindices[qi] >> lvl;
-        row = (long long)tree_ids[qi] * 2 * c + ((g > 1 ? g : 1) ^ 1);
-        dst = siblings + i * 2;
-    } else if (i < n_sib + q) {
-        const long long qi = i - n_sib;
-        row = (long long)tree_ids[qi] * 2 * c + gindices[qi];
-        dst = nodes + qi * 2;
-    } else if (i < n_sib + q + k) {
-        const long long t = i - n_sib - q;
-        row = t * 2 * c + 1;
-        dst = roots + t * 2;
+                                           uint4* __restrict__ out, int q, int d, int k,
+                                           long long c) {
+    const int w = (int)(((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5);
+    const int lane = threadIdx.x & 31;
+    if (w < q) {
+        const long long base = (long long)tree_ids[w] * 2 * c;
+        const int g = gindices[w];
+        uint4* dst = out + (long long)w * d * 2;  // the query's siblings, two halves a row
+        for (int j = lane; j < 2 * d; j += 32) {
+            const int h = g >> (j >> 1);
+            dst[j] = heap[(base + ((h > 1 ? h : 1) ^ 1)) * 2 + (j & 1)];
+        }
+        if (lane < 2) out[((long long)q * d + w) * 2 + lane] = heap[(base + g) * 2 + lane];
     } else {
-        return;
+        const int t = (w - q) * 16 + (lane >> 1);
+        if (t < k) out[((long long)q * d + q + t) * 2 + (lane & 1)] =
+            heap[((long long)t * 2 * c + 1) * 2 + (lane & 1)];
     }
-    dst[0] = heap[row * 2];
-    dst[1] = heap[row * 2 + 1];
 }
 
 extern "C" int multiproof_siblings(const void* heap, const void* tree_ids, const void* gindices,
-                                   void* siblings, void* nodes, void* roots, long long q,
-                                   long long d, long long k, long long c, void* stream) {
-    const long long total = q * d + q + k;
-    if (total > 0) {
+                                   void* out, long long q, long long d, long long k, long long c,
+                                   void* stream) {
+    if (q < 0 || d < 1 || d > 31 || k < 0 || q * d + q + k >= (1ll << 31))
+        return (int)cudaErrorInvalidValue;
+    const long long warps = q + (k + 15) / 16;
+    if (warps > 0) {
         const int threads = 256;
-        multiproof_siblings_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
-                                     (cudaStream_t)stream>>>(
-            (const uint4*)heap, (const int*)tree_ids, (const int*)gindices, (uint4*)siblings,
-            (uint4*)nodes, (uint4*)roots, q, d, k, c);
+        multiproof_siblings_kernel<<<(unsigned)((warps * 32 + threads - 1) / threads), threads,
+                                     0, (cudaStream_t)stream>>>(
+            (const uint4*)heap, (const int*)tree_ids, (const int*)gindices, (uint4*)out, (int)q,
+            (int)d, (int)k, c);
     }
     return (int)cudaGetLastError();
 }

@@ -11,7 +11,8 @@ module and have no nvcc.
 
 Every C entry point returns `cudaGetLastError()` after its launches;
 `check()` raises on a nonzero code, so a refused launch never passes
-quietly. Every pointer and the stream are `ctypes.c_void_p`.
+quietly. Every pointer and the stream are `ctypes.c_void_p` (the stream
+given as an integer, `stream_ptr`).
 
 A source that does not build (or no nvcc), a library that does not load and
 a launch that returns an error all raise `KernelError`, marked
@@ -155,8 +156,10 @@ def check(rc: int, what: str) -> None:
         raise KernelError(f"{what}: CUDA error {rc}")
 
 
-def stream_ptr(t) -> ctypes.c_void_p:
-    """The current CUDA stream of tensor t's device, as a pointer."""
+def stream_ptr(t) -> int:
+    """The current CUDA stream of tensor t's device, as an integer pointer:
+    torch's raw getter, where `torch.cuda.current_stream` builds a Stream
+    object (several us of host time a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

@@ -47,7 +47,8 @@ of csrc/fp_rns.cuh, one warp an item, for K9-K12):
   (`f12_prod_reduce` :1061 as the mesh collectives use it);
 - K13 `g1_msm` (csrc/msm.cu): the windowed bucket MSM (`g1_msm_pippenger`
   :1291), affine out;
-- K14 `g1_subgroup` (csrc/msm.cu): [r]·P == infinity per item (:1347).
+- K14 `g1_subgroup` (csrc/msm.cu): r-subgroup membership per item (:1347),
+  by phi(P) = -[x^2]·P (csrc/curve.cuh `jac_in_g1`).
 The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
 segment; [z]·(-G1) (`g1_fixed_mul_neg_g1` :854) is K9 over -G1.
 Each wrapper launches its kernel for CUDA tensors and runs `<name>_plain` for
@@ -1146,7 +1147,9 @@ FIELD_BACKENDS = {
 # version's are affine, hence canonical whatever order the sums took.
 
 MSM_WINDOW = 4  # default window width: 2^w bucket-table entries an item
-R_ORDER = oracle.R
+# phi(x, y) = (BETA·x, y) on E(Fp): the cube root of unity for which phi acts
+# on G1 as [-x^2] (the subgroup check's endomorphism)
+BETA = 0x5F19672FDF76CE51BA69C6076A0F77EADDB3A93BE6F89688DE17D813620A00022E01FFFFFFFEFFFE
 
 
 def msm_window_digits(bits: torch.Tensor, window: int = MSM_WINDOW) -> torch.Tensor:
@@ -1252,17 +1255,40 @@ def g1_msm(pts, scalars, nbits: int, window: int = MSM_WINDOW):
     return out
 
 
+def _mul_x_abs_limbs(pt):
+    """[|x|]·pt per item over Jacobian limbs, as the kernel's chain
+    (csrc/curve.cuh `jac_mul_x_abs`): from pt (|x|'s top bit), for each lower
+    bit a double, then a complete add of pt where the bit is set."""
+    acc = pt
+    for bit in X_BITS:
+        acc = jac_double(_Fp, acc)
+        if bit:
+            acc = jac_add(_Fp, acc, pt)
+    return acc
+
+
 def g1_subgroup_check_plain(pts):
-    """Plain version of K14 (see `g1_subgroup_check`)."""
-    pts = _check("g1_subgroup_check", pts, (3, NWORDS))
-    r = scalar_words([R_ORDER], 256).to(pts.device).expand(pts.shape[0], 8)
-    return fp_is_zero(scalar_mul_limbs(_Fp, to_limbs(pts), r)[:, 2])
+    """Plain version of K14 (see `g1_subgroup_check`), step by step the
+    kernel's chain: Q = [|x|]·[|x|]·P, then phi(P) = -Q in Jacobian form."""
+    p = to_limbs(_check("g1_subgroup_check", pts, (3, NWORDS)))
+    q = _mul_x_abs_limbs(_mul_x_abs_limbs(p))
+    (X, Y, Z), (QX, QY, QZ) = p.unbind(1), q.unbind(1)
+    zq2, zp2 = fp_sqr(QZ), fp_sqr(Z)
+    zq3, zp3 = fp_mul(zq2, QZ), fp_mul(zp2, Z)
+    bx = fp_mul(X, fp.const_limbs(fp.to_mont(BETA), X).expand_as(X))
+    same_x = fp_is_zero(fp_sub(fp_mul(bx, zq2), fp_mul(QX, zp2)))
+    minus_y = fp_is_zero(fp_add(fp_mul(Y, zq3), fp_mul(QY, zp3)))
+    return fp_is_zero(Z) | (~fp_is_zero(QZ) & same_x & minus_y)
 
 
 def g1_subgroup_check(pts):
-    """K14: per item [r]·P == infinity, (N, 3, 12) Jacobian -> (N,) bool, with
-    the 2-bit ladder over r's 255 bits padded to 256 (:1347); a Z = 0 row
-    reports True. Kernel on CUDA, plain on the CPU."""
+    """K14: r-subgroup membership per item, (N, 3, 12) Jacobian -> (N,) bool;
+    a Z = 0 row (a pad) reports True. Domain: points on E(Fp), y^2 = x^3 + 4
+    (the callers decompress them), where P is in G1 iff phi(P) = -[x^2]·P
+    (M. Scott, ePrint 2021/1130; phi(x, y) = (beta·x, y)), the same boolean as
+    [r]·P == infinity (JAX's `_g1_subgroup_program` :1347); a point off the
+    curve may answer otherwise. The kernel runs a key on a group of four
+    lanes (csrc/g1_lanes.cuh). Kernel on CUDA, plain on the CPU."""
     pts = _check("g1_subgroup_check", pts, (3, NWORDS))
     if is_cpu(pts):
         return g1_subgroup_check_plain(pts)
@@ -1347,6 +1373,13 @@ def g1_ladder_op_counts(n: int, nbits: int) -> dict:
     return {"doubles": n * (1 + 2 * (nw - 1)), "adds": n * nw}
 
 
+def g1_subgroup_chain_op_counts(n: int) -> dict:
+    """Work of K14's chain for n keys (pads excluded): two passes of [|x|]
+    over |x|'s 64 bits, 6 of them set (63 doubles and 5 complete adds a
+    pass), and the 9 Fp products of the Jacobian compare phi(P) = -Q."""
+    return {"doubles": n * 2 * len(X_BITS), "adds": n * 2 * sum(X_BITS), "fp_muls": n * 9}
+
+
 def g1_msm_op_counts(n: int, nbits: int, window: int = MSM_WINDOW) -> dict:
     """G1 point ops of the bucket MSM for an (n, nbits, w) MSM: the tables,
     the window tree and the Horner combine."""
@@ -1383,8 +1416,6 @@ def cuda_constants_header() -> str:
     def words(x):
         return "{" + ", ".join(f"0x{int(w):08x}u" for w in fp.int_to_words(x)) + "}"
 
-    r_words = "{" + ", ".join(f"0x{int(w):08x}u" for w in fp.int_to_words(oracle.R)[:8]) + "}"
-
     def f2_rows(gs):
         return ",\n    ".join("{" + words(fp.to_mont(g[0])) + ", " + words(fp.to_mont(g[1])) + "}"
                               for g in gs)
@@ -1402,8 +1433,8 @@ __device__ __constant__ uint32_t FP_R2[12] = {words(fp.R2_MOD_P)};
 __device__ __constant__ uint32_t FP_EXP_INV[12] = {words(P - 2)};
 __device__ __constant__ uint32_t FP_EXP_SQRT[12] = {words((P + 1) // 4)};
 #define FP_N0 0x{fp.N0_32:08x}u  // -p^-1 mod 2^32
-// r, the order of G1 (a plain integer, eight words): the subgroup check's scalar
-__device__ __constant__ uint32_t R_ORDER[8] = {r_words};
+// beta, the cube root of unity of the subgroup check's phi(x, y) = (beta·x, y)
+__device__ __constant__ uint32_t FP_BETA[12] = {words(fp.to_mont(BETA))};
 #define X_ABS 0x{ABS_X:016x}ull  // |x|, the BLS parameter
 // gamma1^k = xi^(k(p-1)/6) and gamma2^k = conj(gamma1^k)·gamma1^k, k = 0..5
 __device__ __constant__ uint32_t GAMMA1[6][2][12] = {{

@@ -134,21 +134,19 @@ def multiproof_heap(chunks: torch.Tensor) -> torch.Tensor:
 def multiproof_gather(heap: torch.Tensor, tree_ids: torch.Tensor, gindices: torch.Tensor,
                       d: int) -> tuple:
     """(siblings (Q, D, 8), nodes (Q, 8), roots (K, 8)) from the (K, 2C, 8)
-    heap (inputs checked by the caller): K21 on CUDA tensors, one launch;
-    the plain version on CPU tensors."""
+    heap (inputs checked by the caller): K21 on CUDA tensors, one launch
+    into one (Q*D + Q + K, 8) buffer, the three outputs views of it; the
+    plain version on CPU tensors."""
     if is_cpu(heap):
         return multiproof_gather_plain(heap, tree_ids, gindices, d)
     k, c, q = heap.shape[0], heap.shape[1] // 2, gindices.shape[0]
-    dev = heap.device
-    siblings = torch.empty((q, d, 8), dtype=torch.int32, device=dev)
-    nodes = torch.empty((q, 8), dtype=torch.int32, device=dev)
-    roots = torch.empty((k, 8), dtype=torch.int32, device=dev)
-    fn = build.entry("multiproof", "multiproof_siblings", 6, 3)
+    out = heap.new_empty((q * d + q + k, 8))
+    fn = build.entry("multiproof", "multiproof_siblings", 4, 3)
     build.count_launch("multiproof_siblings")
-    build.check(fn(heap.data_ptr(), tree_ids.data_ptr(), gindices.data_ptr(),
-                   siblings.data_ptr(), nodes.data_ptr(), roots.data_ptr(), q, d, k, c,
-                   build.stream_ptr(heap)), "multiproof_siblings")
-    return siblings, nodes, roots
+    build.check(fn(heap.data_ptr(), tree_ids.data_ptr(), gindices.data_ptr(), out.data_ptr(),
+                   q, d, k, c, build.stream_ptr(heap)), "multiproof_siblings")
+    siblings, nodes, roots = out.split_with_sizes((q * d, q, k))
+    return siblings.view(q, d, 8), nodes, roots
 
 
 def sibling_rows_batch(chunks: torch.Tensor, tree_ids: torch.Tensor,

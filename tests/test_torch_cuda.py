@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from consensus_specs_tpu_torch.crypto import bls12_381 as bls_oracle
-from consensus_specs_tpu_torch.crypto import bls_torch
+from consensus_specs_tpu_torch.crypto import bls_torch, msm_synthetic
 from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
 from consensus_specs_tpu_torch import forkchoice as tfc
 from consensus_specs_tpu_torch.engine import epoch as tepoch
@@ -444,12 +444,37 @@ def test_g1_msm_kernel_identity(cuda):
 
 
 def test_g1_subgroup_kernel_matches_plain(cuda):
+    """K14 (four lanes a key) bit-equal to the plain chain on keys, (0, 2) and
+    two pads, and on the edge points: (0, +-2), random curve points, cofactor
+    parts and keys plus (0, 2)."""
     pts, _ = _msm_items(10, 64, 2)
     pts = torch.cat([pts, tbls._jacobian_words([(0, 2)], 2, "cpu")])  # (0, 2) and two pads
+    edge, member = msm_synthetic.subgroup_edge_points(11)
+    edge_words = tbls._jacobian_words(edge, 12, "cpu")
+    want = tbls.g1_subgroup_check_plain(pts)
+    want_edge = tbls.g1_subgroup_check_plain(edge_words)
+    assert want.tolist() == [True] * 10 + [False, True, True]
+    assert want_edge.tolist() == member + [True] * 12
     with _counted("g1_subgroup"):
         got = tbls.g1_subgroup_check(pts.to(cuda))
-    want = tbls.g1_subgroup_check_plain(pts)
-    assert torch.equal(got.cpu(), want) and want.tolist() == [True] * 10 + [False, True, True]
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(tbls.g1_subgroup_check(edge_words.to(cuda)).cpu(), want_edge)
+
+
+def test_g1_subgroup_kernel_committee_with_pads(cuda):
+    """A committee's 512 keys, then 4 random curve points (outside the
+    subgroup) and 60 pads: one launch, bit-equal to the plain chain."""
+    rng = np.random.default_rng(21)
+    F1 = bls_oracle.FP_FIELD
+    keys = [bls_oracle.pt_to_affine(F1, bls_oracle.pt_mul(F1, bls_oracle.G1_GEN, int(k)))
+            for k in rng.integers(1, 2**62, 512, dtype=np.int64)]
+    edge, member = msm_synthetic.subgroup_edge_points(12, keys=0, curve=4, cofactor=0, mixed=0)
+    words = tbls._jacobian_words(keys + edge[2:], 60, cuda)
+    with _counted("g1_subgroup"):
+        got = tbls.g1_subgroup_check(words)
+    want = tbls.g1_subgroup_check_plain(words)
+    assert torch.equal(got, want)
+    assert want.tolist() == [True] * 512 + member[2:] + [True] * 60
 
 
 def test_device_key_aggregation_on_card(cuda):
@@ -612,6 +637,27 @@ def test_multiproof_kernels_match_plain(cuda, k, c, q, shallow):
     d = g.bit_length() - 1
     assert [words_to_bytes(r) for r in got[0][-1, :d].cpu().numpy()] == build_chunk_proof(
         [words_to_bytes(r) for r in words[t]], g)
+
+
+@pytest.mark.parametrize("k,c,q,shallow", [(4, 64, 16, True), (8, 1 << 18, 512, False),
+                                           (37, 8, 5, False)])
+def test_multiproof_gather_outputs_are_views_of_one_buffer(cuda, k, c, q, shallow):
+    """K21 alone: siblings, nodes and roots equal the plain version's and are
+    consecutive views of one (Q*D + Q + K, 8) buffer (37 trees: roots over
+    three warps)."""
+    words, tree_ids, gidx = _multiproof_inputs(k, c, q, k + c + q, shallow)
+    heap = tmultiproof.multiproof_heap_plain(torch.from_numpy(words.view(np.int32)))
+    d = max((c - 1).bit_length(), 1)
+    args = (torch.from_numpy(tree_ids), torch.from_numpy(gidx), d)
+    with _counted("multiproof_siblings"):
+        got = tmultiproof.multiproof_gather(heap.to(cuda), *(a.to(cuda) for a in args[:2]), d)
+    want = tmultiproof.multiproof_gather_plain(heap, *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b) and a.dtype == torch.int32
+    assert [tuple(t.shape) for t in got] == [(q, d, 8), (q, 8), (k, 8)]
+    base = got[0].untyped_storage().data_ptr()
+    assert all(t.untyped_storage().data_ptr() == base for t in got)
+    assert [t.storage_offset() for t in got] == [0, q * d * 8, (q * d + q) * 8]
 
 
 def test_multiproof_kernels_check_their_inputs(cuda):

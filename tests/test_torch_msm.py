@@ -17,8 +17,9 @@ import torch
 
 from consensus_specs_tpu.ops import bls12_jax as JK
 from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
-from consensus_specs_tpu_torch.crypto import kzg
+from consensus_specs_tpu_torch.crypto import kzg, msm_synthetic
 from consensus_specs_tpu_torch.ops import bls12 as B
+from consensus_specs_tpu_torch.ops import fp
 
 F1 = oracle.FP_FIELD
 
@@ -171,6 +172,48 @@ def test_subgroup_check_matches_jax():
     got = B.g1_subgroup_check_device(points, device="cpu")
     want = JK.g1_subgroup_check_device(points)
     assert got.dtype == bool and got.tolist() == want.tolist() == [True] * 39 + [False]
+
+
+def test_subgroup_chain_matches_ladder_and_jax_off_the_subgroup():
+    """K14's chain (phi(P) = -[x^2]·P), the r-ladder it replaced and JAX's
+    `g1_subgroup_check_device` give the same booleans on 30 keys, (0, +-2)
+    (order 3), 12 random curve points, 4 cofactor parts [r]·Q, 4 keys plus
+    (0, 2) and 12 pads (the 64-item bucket), and match the oracle's
+    [r]·P == infinity."""
+    points, member = msm_synthetic.subgroup_edge_points(11)
+    assert len(points) == 52 and sum(member) == 30
+    got = B.g1_subgroup_check_device(points, device="cpu")
+    want = JK.g1_subgroup_check_device(points)
+    words = B._jacobian_words(points, 12, "cpu")
+    r = B.scalar_words([oracle.R], 256).expand(words.shape[0], 8)
+    ladder = fp.fp_is_zero(B.scalar_mul_limbs(B._Fp, fp.to_limbs(words), r)[:, 2])
+    assert got.tolist() == want.tolist() == member
+    assert B.g1_subgroup_check_plain(words).tolist() == ladder.tolist() == member + [True] * 12
+
+
+def test_subgroup_chain_pins_beta_and_the_identity():
+    """beta is a cube root of unity other than 1, and phi(P) = (beta·x, y)
+    equals -[x^2]·P on 16 G1 points in the oracle's integers; the other root
+    of unity does not."""
+    beta, p = B.BETA, oracle.P
+    assert pow(beta, 3, p) == 1 and beta != 1
+    for q in _seeded_points(13, 16):
+        minus = oracle.pt_neg(F1, oracle.pt_mul(F1, oracle.pt_from_affine(F1, q),
+                                                oracle.X_PARAM ** 2))
+        assert oracle.pt_to_affine(F1, minus) == (beta * q[0] % p, q[1])
+        assert oracle.pt_to_affine(F1, minus) != (beta * beta * q[0] % p, q[1])
+
+
+def test_subgroup_chain_op_counts():
+    """126 doubles, 10 adds and 9 compare products a key, which is what the
+    plain chain computes for a key: 1,051 Fp products."""
+    assert B.g1_subgroup_chain_op_counts(1) == {"doubles": 126, "adds": 10, "fp_muls": 9}
+    assert B.g1_subgroup_chain_op_counts(512) == {"doubles": 64512, "adds": 5120,
+                                                  "fp_muls": 4608}
+    key = B._jacobian_words(_seeded_points(14, 1), 0, "cpu")
+    before = fp.plain_muls
+    assert B.g1_subgroup_check_plain(key).tolist() == [True]
+    assert fp.plain_muls - before == 126 * 7 + 10 * 16 + 9 == 1051
 
 
 def test_aggregate_matches_jax():
