@@ -218,9 +218,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    larger, and beside it the SASS one lane executes a product and the
    kernel's own time from torch.profiler; K9-K12's RNS
    instances at the block flush's shapes (K9 at N = 256, K10 on its G2
-   collapse, K11 at B = 257, K12's tail at 257), bit-equal to the RNS plain
-   version there, their least time that version's Fp products x 3,716 lane
-   instructions; K25 at the B phase 5i gave it
+   collapse, K11 at B = 257, K12's tail at 257 and its batch at 256 with
+   m2), bit-equal to the RNS plain version there, their least time that
+   version's Fp products x 3,716 lane instructions; ptxas's registers, stack
+   and spills of K10's and K12's instances and of K12's tree level, and K8
+   op 5's SASS (the divstep inverse: its round loop x 37 rounds, the rest,
+   one product) against Fermat's 608 products; K25 at the B phase 5i gave it
    (1,024 and 256: a rank's shard of the ungrouped check at world 1 and 4;
    64 and 16: its groups) on the flush's Miller values, bit-equal to its
    plain version there, its least time the plain version's Fp products
@@ -421,6 +424,30 @@ def sass_loop_instructions(name: str, kernel: str) -> int:
     print(f"sass {kernel}: longest loop body {len(body)} instructions; "
           f"most used {_opcode_mix(body, 6)}")
     return len(body)
+
+
+def sass_inverse(sass_mul: int) -> dict:
+    """Instructions one thread executes in K8 op 5, the divstep inverse of
+    csrc/fp.cuh: the SASS of its kernel's listing (the kernel, `fp_inv` and
+    the one product by R^3 it calls), the round loop's body counted once for
+    each of the 37 rounds; beside it Fermat's a^(p-2), the 608 products it
+    replaced. {} with the reason where the SASS shows no such loop."""
+    from consensus_specs_tpu_torch.ops import fp
+
+    kernel = "fp_ops_kernelILi5E"
+    try:
+        ops = [op for _, op in _sass_ops("fp", kernel) if not op.startswith("NOP")]
+        body = sass_loop_instructions("fp", kernel)
+    except SmokeFailure as e:
+        return {"not_counted": str(e)[:200]}
+    total = len(ops) - body + fp.GCD_ROUNDS * body
+    out = dict(instructions=total, round_body=body, rounds=fp.GCD_ROUNDS,
+               outside_loop=len(ops) - body, fermat_instructions=608 * sass_mul,
+               fermat_products=608, products_equivalent=total / sass_mul)
+    print(f"sass K8 op 5 (divstep inverse): {total} instructions a thread ({fp.GCD_ROUNDS} "
+          f"rounds x {body} + {len(ops) - body} outside the loop), {total / sass_mul:.1f} "
+          f"products' worth; Fermat's 608 products were {608 * sass_mul}", flush=True)
+    return out
 
 
 def rand_words(rng, shape, dev):
@@ -834,6 +861,13 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
             ms, plain_ms, muls = measured(name, label, kernel, plain, 3)
             rows[name][label] = dict(ms=ms, plain_ms=plain_ms, fp_muls=muls,
                                      **bound(muls, nbytes))
+    # registers, stack and spills of the instances this path runs
+    rows["point_sums"]["ptxas"] = {"g2": ptxas_function("rlc", "point_sums_kernelI2fpLb1"),
+                                   "g1_four_lanes": ptxas_function("rlc", "point_sums_kernelI5fp_g4")}
+    rows["final_exp"]["ptxas"] = {"final_exp": ptxas_function("pairing", "final_exp_kernelI2fp"),
+                                  "tree_level": ptxas_function("pairing", "f12_level_kernelI2fp")}
+    for name in ("point_sums", "final_exp"):
+        print(f"ptxas {name}: {rows[name]['ptxas']}", flush=True)
     rows = list(rows.values())
     for row in rows:
         row.update(route="cuda", launches=launches[row["name"]], max_abs_err=err[row["name"]],
@@ -1261,6 +1295,7 @@ def rns_bls_rows(dev, inputs, launches, err) -> list:
     mp = torch.cat([a1, B.neg_g1_words(dev, R.NLIMBS)[None]])
     m = B.miller_loop(mq, mp)
     least = rns_least_instructions("mont_mul")
+    m1, m2 = m[:b].contiguous(), torch.roll(m, 1, 0)[:b].contiguous()  # the batch's items
     specs = [
         ("rlc_ladders_rns", "rlc.cu", "consensus_specs_tpu/ops/bls12_jax.py:782",
          f"N={b} G1 affine + G2", lambda: B.rlc_ladders(p1, q2, zb),
@@ -1275,6 +1310,9 @@ def rns_bls_rows(dev, inputs, launches, err) -> list:
         ("final_exp_rns", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:611",
          f"tail B={m.shape[0]}", lambda: B.final_exp_tail(m[:-1], m[-1]),
          lambda: B.final_exp_tail_plain(m[:-1], m[-1]), (m.numel() + 768 + 1) * 4),
+        ("final_exp_rns", "pairing.cu", "consensus_specs_tpu/ops/bls12_jax.py:611",
+         f"batch B={b} with m2", lambda: B.final_exp_batch(m1, m2),
+         lambda: B.final_exp_batch_plain(m1, m2), (3 * m1.numel() + b) * 4),
     ]
     rows = []
     with Aside():
@@ -1302,7 +1340,13 @@ def rns_bls_rows(dev, inputs, launches, err) -> list:
               f"launches={row['launches']} bound_ms={row['bound_ms']:.6f} ({row['bound_by']}) "
               f"plain_ms={row['plain_ms']:.3f} library_ms=None fp_muls={row['fp_muls']}",
               flush=True)
-    return rows
+    tail, batch = rows[-2:]  # the batch is a shape of the tail's row
+    tail[batch["shape"]] = {k: batch[k] for k in ("ms", "plain_ms", "fp_muls", "bound_ms",
+                                                  "bound_by", "ms_over_bound")}
+    tail["ptxas"] = {"final_exp": ptxas_function("pairing", "final_exp_kernelI5rns_w"),
+                     "tree_level": ptxas_function("pairing", "f12_level_kernelI5rns_w")}
+    print(f"ptxas final_exp_rns: {tail['ptxas']}", flush=True)
+    return rows[:-1]
 
 
 def msm_main_path(dev, agg_in, kzg_in) -> tuple:
@@ -1499,7 +1543,9 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
                         bit_equal=err[name] == 0.0, library_ms=None,
                         ms_over_bound=first["ms"] / first["bound_ms"], **first,
                         **{r["shape"]: r for r in more}))
-    return out, rows["point_sums"][0]
+    agg = rows["point_sums"][0]
+    agg["ptxas"] = ptxas_function("rlc", "point_sums_kernelI5fp_g4")
+    return out, agg
 
 
 # the stage outputs of ops/forkchoice.py each kernel produces
@@ -3247,7 +3293,11 @@ def main(argv=None) -> int:
                    max_abs_err=err[row["name"]], bit_equal=err[row["name"]] == 0.0,
                    library_ms=None)
     sass_mul = sass_instructions("fp", "fp_ops_kernelILi0E")
+    inverse = sass_inverse(sass_mul)
     rows += bls_rows(dev, bls_in, bls_launches, err, sass_mul)
+    for row in rows:
+        if row["name"] == "fp_ops":
+            row["inverse_sass"] = inverse
     new_rows, aggregate_row = msm_rows(dev, agg_in, kzg_in, msm_launches, err, sass_mul)
     for row in rows:
         if row["name"] == "point_sums":

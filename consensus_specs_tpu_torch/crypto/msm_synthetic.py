@@ -19,6 +19,9 @@ files, no network).
   scalar multiplication each instead of an MSM over the setup
   (tests/test_torch_kzg_batch.py holds them equal to `kzg.commit`,
   `prove_coset` and `prove_degree_bound` at a small size).
+- `committee_keys`: the block's first committee of `block_aggregate_inputs`
+  alone (the same seed gives the same keys), affine, for K10's committee
+  sum without the other 65,536 keys.
 - `subgroup_edge_points`: curve points in and out of G1 for the subgroup
   check (K14): keys, the order-3 points (0, +-2), random points of E(Fp)
   (cofactor components), their cofactor parts [r]·Q alone, and keys plus
@@ -88,6 +91,20 @@ def subgroup_edge_points(seed: int, keys: int = 30, curve: int = 12, cofactor: i
     member = [oracle.pt_is_inf(oracle.pt_mul(F, oracle.pt_from_affine(F, q), oracle.R))
               for q in pts]
     return pts, member
+
+
+def committee_keys(seed: int, size: int = COMMITTEE_SIZE) -> tuple:
+    """(affine keys, their affine sum): the first `size` keys of
+    `block_aggregate_inputs(seed)`, sk_0 + j for j < size, and [sum sk]·G1."""
+    F1 = oracle.FP_FIELD
+    sk0 = int(np.random.default_rng(seed).integers(1, 2**62))
+    pt = oracle.pt_mul(F1, oracle.G1_GEN, sk0)
+    jac = []
+    for _ in range(size):
+        jac.append(pt)
+        pt = oracle.pt_add(F1, pt, oracle.G1_GEN)
+    total = (size * sk0 + size * (size - 1) // 2) % oracle.R
+    return _affine_all(jac), oracle.pt_to_affine(F1, oracle.pt_mul(F1, oracle.G1_GEN, total))
 
 
 def block_aggregate_inputs(seed: int) -> dict:

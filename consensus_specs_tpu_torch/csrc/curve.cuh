@@ -72,7 +72,7 @@ BLS_INLINE void fstore(uint32_t *p, const fp2_t<F> &x) {
 }
 
 // threads a block of one-item units: 64 threads over the limb field, four
-// warps over RNS (K9, K11, K12's batch mode)
+// warps over RNS (K9, K11)
 template <typename B>
 __host__ __device__ constexpr int item_threads() {
     return B::LANES == 1 ? 64 : 4 * B::LANES;

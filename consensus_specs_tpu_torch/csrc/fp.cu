@@ -1,6 +1,6 @@
 // K8 fp_ops: one Fp operation, chosen by op code, over M elements, one thread
-// an element: mul, sqr, add, sub, neg, inv (Fermat), sqrt candidate
-// (a^((p+1)/4)). Words in and out: (M, 12) int32 bit patterns.
+// an element: mul, sqr, add, sub, neg, inv (divsteps, csrc/fp.cuh), sqrt
+// candidate (a^((p+1)/4)). Words in and out: (M, 12) int32 bit patterns.
 //
 // Replaces consensus_specs_tpu/ops/limb_mont.py:39 `MontgomeryField` and
 // ops/fp_jax.py:70-125 as batched ops. On the BLS flush it converts the

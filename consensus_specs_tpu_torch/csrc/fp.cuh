@@ -148,29 +148,169 @@ BLS_NOINLINE void fp_mul(fp &r, const fp &a, const fp &b) { fp_mul_inl(r, a, b);
 
 BLS_INLINE void fp_sqr(fp &r, const fp &a) { fp_mul(r, a, a); }
 
-// a^e for the exponent table `which` (0: p - 2, the inverse; 1: (p + 1)/4,
-// the square root candidate), square-and-multiply from the top bit. The
+// a^((p+1)/4), square-and-multiply from the top bit of FP_EXP_SQRT; the
 // bit loop stays rolled.
-BLS_NOINLINE void fp_pow_table(fp &r, const fp &a, int which) {
-    fp base = a, acc;
+BLS_NOINLINE void fp_sqrt_candidate(fp &r, const fp &a) {
+    fp acc;
     fp_set_one(acc);
     int top = 383;
-    while (top > 0 && !(((which ? FP_EXP_SQRT[top >> 5] : FP_EXP_INV[top >> 5]) >> (top & 31)) & 1))
-        --top;
+    while (top > 0 && !((FP_EXP_SQRT[top >> 5] >> (top & 31)) & 1)) --top;
 #pragma unroll 1
     for (int i = top; i >= 0; --i) {
         fp_mul(acc, acc, acc);
-        uint32_t word = which ? FP_EXP_SQRT[i >> 5] : FP_EXP_INV[i >> 5];
-        if ((word >> (i & 31)) & 1) fp_mul(acc, acc, base);
+        if ((FP_EXP_SQRT[i >> 5] >> (i & 31)) & 1) fp_mul(acc, acc, a);
     }
     r = acc;
 }
 
-// Fermat inverse a^(p-2); zero maps to zero (limb_mont.inv), so the affine
-// image of the point at infinity is (0, 0).
-BLS_INLINE void fp_inv(fp &r, const fp &a) { fp_pow_table(r, a, 0); }
+// --- the inverse: Bernstein-Yang divsteps (safegcd, ePrint 2019/266) ---------
+//
+// The constant-time modular inverse of libsecp256k1's modinv32 over 13
+// signed 30-bit limbs (390 bits: p and every intermediate with its sign),
+// with the original divstep (delta from 1, here eta = -delta). A round runs
+// 30 divsteps on the low words of f and g alone, which fix its transition
+// matrix t (entries within 2^30), then applies t to the full (f, g) with an
+// exact division by 2^30 and to (d, e) modulo p (adding the multiples of p
+// that clear the low 30 bits), keeping f = d·x and g = e·x mod p. From
+// (f, g, d, e) = (p, x, 0, 1), GCD_ROUNDS = 37 rounds (1,110 divsteps) reach
+// g = 0 for every x < p (Bernstein-Yang, theorem 11.2: floor((49·381 +
+// 57)/17) = 1,101 for 381-bit inputs); then f = +-1 and x^-1 = +-d. The
+// count is fixed and every step branch-free, so the time does not depend on
+// the value and a lane group never parts on it. x = 0 keeps d = 0: zero maps
+// to zero. ops/fp.py `gcd_inverse_int` is the same algorithm step for step
+// over Python ints (tests/test_torch_fp.py holds it against a^(p-2)).
+//
+// Cost: a round is 30 divsteps of about 14 instructions on one 32-bit word
+// and two 13-limb matrix products (about 110 wide multiply-adds), so the
+// whole inverse is about the instructions of 25-30 Fp products, where
+// Fermat's a^(p-2) is 608 products in one chain.
+#define FP_S30 13
+#define FP_GCD_ROUNDS 37
+#define FP_M30 0x3fffffff
 
-BLS_INLINE void fp_sqrt_candidate(fp &r, const fp &a) { fp_pow_table(r, a, 1); }
+BLS_INLINE int32_t fp_divsteps30(int32_t eta, uint32_t f, uint32_t g, int32_t t[4]) {
+    uint32_t u = 1, v = 0, q = 0, r = 1;
+#pragma unroll
+    for (int i = 0; i < 30; ++i) {
+        uint32_t c1 = (uint32_t)(eta >> 31);  // eta < 0
+        uint32_t c2 = 0u - (g & 1u);           // g odd
+        uint32_t x = (f ^ c1) - c1, y = (u ^ c1) - c1, z = (v ^ c1) - c1;
+        g += x & c2;
+        q += y & c2;
+        r += z & c2;
+        c1 &= c2;  // swap: eta < 0 and g odd
+        eta = (eta ^ (int32_t)c1) - ((int32_t)c1 + 1);
+        f += g & c1;
+        u += q & c1;
+        v += r & c1;
+        g >>= 1;
+        u <<= 1;
+        v <<= 1;
+    }
+    t[0] = (int32_t)u;
+    t[1] = (int32_t)v;
+    t[2] = (int32_t)q;
+    t[3] = (int32_t)r;
+    return eta;
+}
+
+// [f, g] <- t·[f, g] / 2^30, exact
+BLS_INLINE void fp_update_fg30(int32_t *f, int32_t *g, const int32_t t[4]) {
+    const int64_t u = t[0], v = t[1], q = t[2], r = t[3];
+    int64_t cf = (u * f[0] + v * g[0]) >> 30;
+    int64_t cg = (q * f[0] + r * g[0]) >> 30;
+#pragma unroll
+    for (int i = 1; i < FP_S30; ++i) {
+        cf += u * f[i] + v * g[i];
+        cg += q * f[i] + r * g[i];
+        f[i - 1] = (int32_t)cf & FP_M30;
+        cf >>= 30;
+        g[i - 1] = (int32_t)cg & FP_M30;
+        cg >>= 30;
+    }
+    f[FP_S30 - 1] = (int32_t)cf;
+    g[FP_S30 - 1] = (int32_t)cg;
+}
+
+// [d, e] <- t·[d, e] / 2^30 mod p, both kept in (-2p, p)
+BLS_INLINE void fp_update_de30(int32_t *d, int32_t *e, const int32_t t[4]) {
+    const int32_t u = t[0], v = t[1], q = t[2], r = t[3];
+    const int32_t sd = d[FP_S30 - 1] >> 31, se = e[FP_S30 - 1] >> 31;
+    int32_t md = (u & sd) + (v & se), me = (q & sd) + (r & se);
+    int64_t cd = (int64_t)u * d[0] + (int64_t)v * e[0];
+    int64_t ce = (int64_t)q * d[0] + (int64_t)r * e[0];
+    md -= (int32_t)((FP_PINV30 * (uint32_t)cd + (uint32_t)md) & FP_M30);
+    me -= (int32_t)((FP_PINV30 * (uint32_t)ce + (uint32_t)me) & FP_M30);
+    cd = (cd + (int64_t)FP_P30[0] * md) >> 30;
+    ce = (ce + (int64_t)FP_P30[0] * me) >> 30;
+#pragma unroll
+    for (int i = 1; i < FP_S30; ++i) {
+        cd += (int64_t)u * d[i] + (int64_t)v * e[i] + (int64_t)FP_P30[i] * md;
+        ce += (int64_t)q * d[i] + (int64_t)r * e[i] + (int64_t)FP_P30[i] * me;
+        d[i - 1] = (int32_t)cd & FP_M30;
+        cd >>= 30;
+        e[i - 1] = (int32_t)ce & FP_M30;
+        ce >>= 30;
+    }
+    d[FP_S30 - 1] = (int32_t)cd;
+    e[FP_S30 - 1] = (int32_t)ce;
+}
+
+// d in (-2p, p) -> d·sign(f) in [0, p)
+BLS_INLINE void fp_normalize30(int32_t *d, int32_t sign) {
+    int32_t neg = d[FP_S30 - 1] >> 31, flip = sign >> 31;
+#pragma unroll
+    for (int i = 0; i < FP_S30; ++i) d[i] = ((d[i] + (FP_P30[i] & neg)) ^ flip) - flip;
+#pragma unroll
+    for (int i = 0; i < FP_S30 - 1; ++i) {
+        d[i + 1] += d[i] >> 30;
+        d[i] &= FP_M30;
+    }
+    neg = d[FP_S30 - 1] >> 31;
+#pragma unroll
+    for (int i = 0; i < FP_S30; ++i) d[i] += FP_P30[i] & neg;
+#pragma unroll
+    for (int i = 0; i < FP_S30 - 1; ++i) {
+        d[i + 1] += d[i] >> 30;
+        d[i] &= FP_M30;
+    }
+}
+
+// The inverse of the Montgomery value aR: the divsteps give (aR)^-1 =
+// a^-1 R^-1, and one Montgomery product by R^3 mod p makes it a^-1 R,
+// canonical. Zero maps to zero (limb_mont.inv), so the affine image of the
+// point at infinity is (0, 0).
+BLS_NOINLINE void fp_inv(fp &r, const fp &a) {
+    int32_t f[FP_S30], g[FP_S30], d[FP_S30], e[FP_S30];
+#pragma unroll
+    for (int i = 0; i < FP_S30; ++i) {  // g: the 30-bit limbs of a's words
+        const int bit = 30 * i, w = bit >> 5, sh = bit & 31;
+        uint64_t x = ((uint64_t)(w + 1 < 12 ? a.w[w + 1] : 0u) << 32) | a.w[w];
+        g[i] = (int32_t)((x >> sh) & FP_M30);
+        f[i] = FP_P30[i];
+        d[i] = 0;
+        e[i] = i == 0;
+    }
+    int32_t eta = -1;
+#pragma unroll 1
+    for (int k = 0; k < FP_GCD_ROUNDS; ++k) {
+        int32_t t[4];
+        eta = fp_divsteps30(eta, (uint32_t)f[0], (uint32_t)g[0], t);
+        fp_update_de30(d, e, t);
+        fp_update_fg30(f, g, t);
+    }
+    fp_normalize30(d, f[FP_S30 - 1]);
+    fp x, r3;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) {  // back to 32-bit words: bits 32j .. 32j + 31
+        const int bit = 32 * j, i = bit / 30, sh = bit % 30;
+        // sh is even, at most 28: limbs i and i + 1 hold the 32 bits
+        uint64_t v = ((uint64_t)(uint32_t)d[i] >> sh) | ((uint64_t)(uint32_t)d[i + 1] << (30 - sh));
+        x.w[j] = (uint32_t)v;
+        r3.w[j] = FP_R3[j];
+    }
+    fp_mul(r, x, r3);
+}
 
 // an element in memory: its twelve words
 BLS_INLINE void fp_load(fp &x, const uint32_t *p) {

@@ -1,5 +1,6 @@
-// K14's lane group: one G1 key on four lanes of a warp, for the subgroup
-// check's chain (csrc/curve.cuh `jac_in_g1`). Only csrc/msm.cu includes it.
+// The four-lane G1 group: one G1 point on four lanes of a warp, for K14's
+// subgroup check chain (csrc/curve.cuh `jac_in_g1`, csrc/msm.cu) and K10's
+// limb G1 sums (csrc/rlc.cu: block_tree_sum's adds, then jac_to_affine).
 //
 // The chain is 136 point operations in one dependency line, so one thread a
 // key runs at one thread's latency: 1,051 Fp products in sequence, each a
@@ -49,6 +50,8 @@ BLS_INLINE void fp_mul(fp_g4 &r, const fp_g4 &a, const fp_g4 &b) { fp_mul(r.v, a
 BLS_INLINE void fp_load(fp_g4 &x, const uint32_t *p) { fp_load(x.v, p); }
 BLS_INLINE void fp_store(uint32_t *p, const fp_g4 &x) { fp_store(p, x.v); }
 BLS_INLINE void field_prologue(fp_g4 *) {}
+// every lane inverts the shared value alike (branch-free, csrc/fp.cuh)
+BLS_INLINE void fp_inv(fp_g4 &r, const fp_g4 &a) { fp_inv(r.v, a.v); }
 
 // the value x of lane `src` of this lane's group
 BLS_INLINE void g4_read(fp &r, const fp &x, int src) {

@@ -1,8 +1,8 @@
 // The optimal-ate pairing on the card, templates over the base field: one
-// thread a pairing over the limb field (csrc/fp.cuh), one warp a pairing
-// over RNS (csrc/fp_rns.cuh, `_rns` entry points). Each launch takes its
-// geometry from the field's lanes an element; a unit below is a thread
-// (limb) or a warp (RNS).
+// thread a Miller loop over the limb field (csrc/fp.cuh), one warp over RNS
+// (csrc/fp_rns.cuh, `_rns` entry points), and a group of them a final
+// exponentiation. Each launch takes its geometry from the field's lanes an
+// element; a unit below is a thread (limb) or a warp (RNS).
 //
 // K11 miller_loop: f_{|x|,Q}(P), conjugated (x < 0), per (Q, P) pair: Q
 // affine on the twist (B, 2, 2, 12), P affine (B, 2, 12) -> (B, 12, 12).
@@ -12,32 +12,39 @@
 // an add, :22-27), so the output is JAX's, bit for bit.
 //
 // K12 final_exp, the final exponentiation (:611, JAX's hard-part chain, so
-// the output is the cube of the reduced pairing) and `f12_is_one` (:628):
-// - mode 1 (batch): per item (a unit each), f = m1 (times m2 where given),
+// the output is the cube of the reduced pairing) and `f12_is_one` (:628),
+// each on a group of units (csrc/f12_group.cuh: 32 lanes of a warp under
+// limb, the 8 warps of a block under RNS):
+// - mode 1 (batch): per item (a group each), f = m1 (times m2 where given),
 //   its final exponentiation and is_one (`pairing_cube_batch` :762,
 //   `pairing_check_batch` :768);
-// - mode 0 (tail): one block's units tree-multiply the n values in place
-//   (`f12_tree_product`), then unit 0 exponentiates the product
+// - mode 0 (tail): the tree product of the n values in place
+//   (`f12_tree_product`), then one group exponentiates the product
 //   (`f12_prod_reduce` :1061, `rlc_tail` :1219).
 //
-// K25 f12_product (limb field only): the same one-block tree product of B
-// Fp12 values (B, 12, 12), in place, and no exponentiation: the Fp12
-// partial of a mesh rank's shard and the fold of the gathered partials
-// (`f12_prod_reduce` as parallel/collectives.py:147, :153, :236 use it).
-// K12's tail and K25 call one device function, `f12_tree_product`, so the
-// two products cannot drift apart. The order (i with i + ceil(k/2)) is the
+// K25 f12_product (limb field only): the same tree product of B Fp12 values
+// (B, 12, 12), in place, and no exponentiation: the Fp12 partial of a mesh
+// rank's shard and the fold of the gathered partials (`f12_prod_reduce` as
+// parallel/collectives.py:147, :153, :236 use it). K12's tail and K25 call
+// one function, `f12_tree_product`, so the two products cannot drift
+// apart: a launch a level, a group a product, the levels' products side by
+// side on as many SMs as they need. The order (i with i + ceil(k/2)) is the
 // plain versions' (ops/bls12.py `f12_tree_product_limbs`); any order gives
-// the same canonical value.
+// the same canonical value, and RNS residues follow the order. An entry
+// call of K12 or K25 counts one launch whatever its grids.
 //
-// Bound: operations. A Miller loop is about 7,700 Fp products and a final
-// exponentiation about 9,300 in one unit; a block flush runs 257 Miller
-// loops (257 of the card's 16,896 lanes under the limb field) and one
-// exponentiation in one unit, so both are latency-bound far from the
-// operation rate. The bit loops stay rolled; the tower functions are
+// Bound: operations. A Miller loop is about 7,700 Fp products in one unit
+// and a final exponentiation about 9,300 on one group; a block flush runs
+// 257 Miller loops (257 of the card's 16,896 lanes under the limb field)
+// and one exponentiation, so both are latency-bound far from the operation
+// rate. The group shortens the exponentiation's line about 8x (limb) and
+// 5x (RNS), and the tail's tree is 9 levels of one group's Fp12 product
+// (PERF.md). The bit loops stay rolled; the tower functions are
 // called, not inlined. Under RNS an Fp12 is 24 registers a lane.
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
+#include "f12_group.cuh"
 #include "stack.cuh"
 
 // One Miller doubling of T with its line (l0, l3, l5) at P = (xp, yp):
@@ -159,60 +166,76 @@ __global__ void __launch_bounds__(item_threads<B>())
     f12_store(out + 12 * W * i, f);
 }
 
-constexpr int TAIL_THREADS = 256;
-
-// Tree-multiplies the k Fp12 values m[0..k) into m[0], in place: at each
-// level value i takes value i + ceil(k/2), unit u the products i = u, u + U,
-// ... (U units). Every thread of the block calls.
+// threads a block of K12 and K25: four 32-lane groups (limb), one group of
+// eight warps (RNS); the exchanges of a block
 template <typename B>
-__device__ void f12_tree_product(uint32_t *m, long long k) {
+__host__ __device__ constexpr int group_block() {
+    return B::LANES == 1 ? 4 * group_threads<B>() : group_threads<B>();
+}
+template <typename B>
+__host__ __device__ constexpr int xbuf_words() {
+    return group_block<B>() / group_threads<B>() * group_words<B>();
+}
+
+// One level of the tree product of K12's tail and K25: group i of the grid
+// multiplies m[i] by m[i + half] in place, i < n (g_f12_mul). The levels are
+// launches of their own, so a level's products all run side by side, one a
+// group, on as many SMs as they need.
+template <typename B>
+__global__ void __launch_bounds__(group_block<B>())
+    f12_level_kernel(uint32_t *m, long long n, long long half) {
+    using Grp = typename fe_group<B>::type;
+    __shared__ __align__(16) uint32_t xbuf[xbuf_words<B>()];
+    field_prologue((B *)nullptr);
     constexpr int W = 12 * B::WORDS;
-    const int u = threadIdx.x / B::LANES, units = blockDim.x / B::LANES;
+    const long long i = (long long)blockIdx.x * (blockDim.x / group_threads<B>()) + Grp::index();
+    if (i >= n) return;  // a whole group (under RNS the block)
+    uint32_t *buf = xbuf + Grp::index() * group_words<B>();
+    fp12_t<B> a, b;
+    f12_load(a, m + W * i);
+    f12_load(b, m + W * (i + half));
+    g_f12_mul<B, Grp>(a, a, b, buf);
+    if (Grp::rank() == 0) f12_store(m + W * i, a);
+}
+
+// The tree product of the k values of m into m[0]: at each level value i
+// takes value i + ceil(k/2) (the plain versions' order, ops/bls12.py
+// `f12_tree_product_limbs`; any order gives the same canonical limb value,
+// and RNS residues follow the order), a launch a level.
+template <typename B>
+static void f12_tree_product(uint32_t *m, long long k, cudaStream_t s) {
+    const int per_block = group_block<B>() / group_threads<B>();
     while (k > 1) {
-        long long half = (k + 1) / 2;
-        for (long long i = u; i < k - half; i += units) {
-            fp12_t<B> a, b;
-            f12_load(a, m + W * i);
-            f12_load(b, m + W * (i + half));
-            f12_mul(a, a, b);
-            f12_store(m + W * i, a);
-        }
-        __syncthreads();
+        const long long half = (k + 1) / 2, n = k - half;
+        f12_level_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), group_block<B>(), 0,
+                              s>>>(m, n, half);
         k = half;
     }
 }
 
-__global__ void f12_product_kernel(uint32_t *m, long long n) { f12_tree_product<fp>(m, n); }
-
+// K12: item i's final exponentiation (of m[i], times m2[i] where given) and
+// is_one, a group an item (f12_group.cuh)
 template <typename B>
-__global__ void __launch_bounds__(TAIL_THREADS)
-    final_exp_kernel(uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok, long long n,
-                     int mode) {
+__global__ void __launch_bounds__(group_block<B>())
+    final_exp_kernel(const uint32_t *m, const uint32_t *m2, uint32_t *out, int *ok, long long n) {
+    using Grp = typename fe_group<B>::type;
+    __shared__ __align__(16) uint32_t xbuf[xbuf_words<B>()];
     field_prologue((B *)nullptr);
     constexpr int W = 12 * B::WORDS;
-    if (mode == 1) {
-        long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B::LANES;
-        if (i >= n) return;
-        fp12_t<B> f, g;
-        f12_load(f, m + W * i);
-        if (m2) {
-            f12_load(g, m2 + W * i);
-            f12_mul(f, f, g);
-        }
-        final_exponentiation(f, f);
-        f12_store(out + W * i, f);
-        bool one = f12_is_one(f);
-        if (threadIdx.x % B::LANES == 0) ok[i] = one ? 1 : 0;
-        return;
+    const long long i = (long long)blockIdx.x * (blockDim.x / group_threads<B>()) + Grp::index();
+    if (i >= n) return;  // a whole group (under RNS the block)
+    uint32_t *buf = xbuf + Grp::index() * group_words<B>();
+    fp12_t<B> f, g;
+    f12_load(f, m + W * i);
+    if (m2) {
+        f12_load(g, m2 + W * i);
+        g_f12_mul<B, Grp>(f, f, g, buf);
     }
-    f12_tree_product<B>(m, n);
-    if (threadIdx.x < B::LANES) {
-        fp12_t<B> f;
-        f12_load(f, m);
-        final_exponentiation(f, f);
-        f12_store(out, f);
-        bool one = f12_is_one(f);
-        if (threadIdx.x == 0) ok[0] = one ? 1 : 0;
+    g_final_exponentiation<B, Grp>(f, f, buf);
+    bool one = f12_is_one(f);
+    if (Grp::rank() == 0) {
+        f12_store(out + W * i, f);
+        if (threadIdx.x % B::LANES == 0) ok[i] = one ? 1 : 0;
     }
 }
 
@@ -239,6 +262,8 @@ static int miller_entry(const void *q, const void *p, void *out, long long n, vo
     return (int)cudaGetLastError();
 }
 
+// mode 1 (batch): items 0 .. n-1; mode 0 (tail): the tree product of the
+// n values of m (in place), then its exponentiation as one item
 template <typename B>
 static int final_exp_entry(void *m, const void *m2, void *out, void *ok, long long n,
                            long long mode, void *stream) {
@@ -246,14 +271,16 @@ static int final_exp_entry(void *m, const void *m2, void *out, void *ok, long lo
     if (e) return e;
     if (n > 0) {
         cudaStream_t s = (cudaStream_t)stream;
-        if (mode == 1) {
-            const int threads = item_threads<B>(), per_block = threads / B::LANES;
-            final_exp_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), threads, 0, s>>>(
-                (uint32_t *)m, (const uint32_t *)m2, (uint32_t *)out, (int *)ok, n, 1);
-        } else {
-            final_exp_kernel<B><<<1, TAIL_THREADS, 0, s>>>((uint32_t *)m, nullptr,
-                                                           (uint32_t *)out, (int *)ok, n, 0);
+        long long items = n;
+        if (mode == 0) {
+            f12_tree_product<B>((uint32_t *)m, n, s);
+            items = 1;
+            m2 = nullptr;
         }
+        const int per_block = group_block<B>() / group_threads<B>();
+        final_exp_kernel<B><<<(unsigned)((items + per_block - 1) / per_block), group_block<B>(), 0,
+                              s>>>((const uint32_t *)m, (const uint32_t *)m2, (uint32_t *)out,
+                                   (int *)ok, items);
     }
     return (int)cudaGetLastError();
 }
@@ -278,11 +305,10 @@ extern "C" int final_exp_rns(void *m, const void *m2, void *out, void *ok, long 
 }
 
 // K25: the product of the n Fp12 values of m (n, 12, 12), in place into
-// m[0]; no exponentiation. One block.
+// m[0]; no exponentiation. A launch a level of the tree.
 extern "C" int f12_product(void *m, long long n, void *stream) {
     int e = ensure_stack();
     if (e) return e;
-    if (n > 0)
-        f12_product_kernel<<<1, TAIL_THREADS, 0, (cudaStream_t)stream>>>((uint32_t *)m, n);
+    if (n > 0) f12_tree_product<fp>((uint32_t *)m, n, (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }

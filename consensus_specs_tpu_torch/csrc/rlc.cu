@@ -13,26 +13,40 @@
 // `rlc_randomize_g1` and :1164 `rlc_collapse_g2`.
 //
 // K10 point_sums: one block a segment [off[d], off[d+1]) of Jacobian points
-// (segments in order, sorted by the caller): each of the block's units (64
-// threads, or 16 warps under RNS) adds a strided share, the shares meet in
-// a tree in shared memory (curve.cuh's block_tree_sum, which K13's window
-// sums share), unit 0 makes the sum affine. An empty segment sums to
-// infinity and comes out (0, 0) (inv(0) = 0); `pairing_check_rlc` fails
-// such a batch from the segment counts. G2 with one segment is the
-// bilinearity collapse (:1014 + :1043), G1 with D segments the grouped
-// path's sum by message (:1172, :1195); two template instances a field. The
-// order is the plain version's (ops/bls12.py `segment_sums`), which RNS
-// values need: their residues depend on it.
+// (segments in order, sorted by the caller): each of the block's 64 units
+// (16 warps under RNS) adds a strided share, the shares meet in a tree in
+// shared memory (curve.cuh's block_tree_sum, which K13's window sums share),
+// and the sum is made affine. An empty segment sums to infinity and comes
+// out (0, 0) (inv(0) = 0); `pairing_check_rlc` fails such a batch from the
+// segment counts. G2 with one segment is the bilinearity collapse (:1014 +
+// :1043), G1 with D segments the grouped path's sum by message (:1172,
+// :1195) and, over one segment, the committee-key sum
+// (`_g1_aggregate_program` :1339); two template instances a field.
+//
+// The limb G1 instance runs a unit on four lanes (F = fp_g4,
+// csrc/g1_lanes.cuh: a complete add's 16 products in 5 steps), 256 threads
+// a block: a committee of 512 keys is 64 groups x 8 points, then a 6-level
+// tree, 13 adds of 5 steps in one line, and the affine step's inverse is
+// the divstep one (csrc/fp.cuh), about 25-35 products' time where Fermat's
+// chain is 608. One thread a unit over 256 threads (9 adds of 16
+// products) was slower at 512 keys (PERF.md). The limb result does not
+// depend on the order of the adds (an affine sum has one canonical
+// encoding), so the plain version keeps its 64-unit order, which is also
+// the 64 groups'. The G2 instance stays one thread
+// a unit and the RNS instances one warp a unit: the RNS order is the plain
+// version's (ops/bls12.py `segment_sums_limbs`), which their residues need.
 //
 // Bound: operations (Fp products). A ladder is about 95 point operations of
 // 7-16 products each in one thread (warp); the card holds 16,896 lanes and
 // the batches here are 256-2048 items, so both kernels are latency-bound far
-// from the card's operation rate (chip_smoke.py reports the ratio).
+// from the card's operation rate (chip_smoke.py reports the ratio); a
+// segment's sum is a line of adds, which the lane group shortens.
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
 #include "curve.cuh"
+#include "g1_lanes.cuh"
 #include "stack.cuh"
 
 template <typename B>
@@ -73,12 +87,12 @@ __global__ void __launch_bounds__(item_threads<B>())
     }
 }
 
-constexpr int SUM_THREADS = 64;  // K10's units over the limb field
-constexpr int SUM_WARPS = 16;    // over RNS
+constexpr int SUM_UNITS = 64;  // K10's units over the limb field
+constexpr int SUM_WARPS = 16;  // over RNS
 
 template <typename B>
 __host__ __device__ constexpr int sum_threads() {
-    return B::LANES == 1 ? SUM_THREADS : SUM_WARPS * B::LANES;
+    return B::LANES == 32 ? SUM_WARPS * B::LANES : SUM_UNITS * B::LANES;
 }
 
 // C: the coordinate field, B or Fp2 over it
@@ -129,11 +143,13 @@ static int sums(const void *pts, const void *off, void *out, long long d, long l
     if (e) return e;
     if (d > 0) {
         cudaStream_t s = (cudaStream_t)stream;
+        // the limb G1 instance on four-lane groups (fp_g4), the rest as B
+        using G1 = typename std::conditional<std::is_same<B, fp>::value, fp_g4, B>::type;
         if (is_g2)
             point_sums_kernel<B, true><<<(unsigned)d, sum_threads<B>(), 0, s>>>(
                 (const uint32_t *)pts, (const long long *)off, (uint32_t *)out);
         else
-            point_sums_kernel<B, false><<<(unsigned)d, sum_threads<B>(), 0, s>>>(
+            point_sums_kernel<G1, false><<<(unsigned)d, sum_threads<G1>(), 0, s>>>(
                 (const uint32_t *)pts, (const long long *)off, (uint32_t *)out);
     }
     return (int)cudaGetLastError();

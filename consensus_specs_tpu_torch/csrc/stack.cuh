@@ -1,12 +1,12 @@
-// The per-thread stack of the BLS kernels (K9-K12). A thread holds Fp12
-// values and the frames of the called (__noinline__) tower functions; the
-// deepest kernel, K12's limb final_exp_kernel, needs 10,160 bytes (ptxas,
-// cumulative stack size). The RNS instances hold two words a lane an Fp and
-// need far less (K12's 1,504 bytes, K11's 600), but K12's is still above
-// the CUDA runtime's default of 1 KiB, so their entries call this too. The
-// CUDA driver reserves the limit for every thread the card can hold at once
-// (2,048 an SM, 132 SMs), about 2.8 GB at this limit, so it sits just above
-// that need.
+// The per-thread stack of the BLS kernels (K9-K12, K25). A thread holds
+// Fp12 values and the frames of the called (__noinline__) tower functions:
+// K12's limb instance needs 6,464 bytes (ptxas, cumulative stack size) and
+// K9's limb ladder 5,184, below this limit, which tests/test_torch_cuda.py
+// pins at 10,160 bytes or more. The RNS instances hold two words a lane an
+// Fp and need far less, but K12's is still above the CUDA runtime's default
+// of 1 KiB, so their entries call this too. The CUDA driver reserves the
+// limit for every thread the card can hold at once (2,048 an SM, 132 SMs),
+// about 2.8 GB at this limit.
 #pragma once
 #include <cuda_runtime.h>
 

@@ -7,11 +7,13 @@
 // (row 2k + c; 144 words over the limb field, 768 over RNS).
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py:82-436 (`f2_*`, `f2_inv`
-// :158, `f12_mul` :241, `f12_sqr` :250, `f12_mul_sparse035` :312,
-// `_f6_mul`/`_f6_inv` :324-350, `f12_inv` :364, `f12_conj`,
-// `f12_frobenius`/`f12_frobenius2` :423-440) and `f12_cyclotomic_sqr`
-// :539. The TPU program stacks independent products into one wide field call;
-// here each thread (each warp, under rns_w) runs the formulas in sequence.
+// :158, `f12_sqr` :250, `f12_mul_sparse035` :312, `_f6_mul`/`_f6_inv`
+// :324-350, `f12_inv` :364, `f12_conj`). The TPU program stacks independent
+// products into one wide field call; here each thread (each warp, under
+// rns_w) runs the formulas in sequence. The final exponentiation's Fp12
+// product (:241), squaring, Frobenius maps (:423-440) and cyclotomic
+// squaring (:539) run on a group of units instead: csrc/f12_group.cuh, with
+// the one-unit formulas.
 // Both instances run these same formulas. Limb values are canonical, so the
 // Karatsuba forms give JAX's words exactly. RNS values are redundant: a
 // result's residues depend on the integers fed to each Montgomery product,
@@ -315,21 +317,6 @@ BLS_NOINLINE void f12_conj(fp12_t<F> &r, const fp12_t<F> &x) {
     f6_neg(r.b, x.b);
 }
 
-// (a0 + a1 w)(b0 + b1 w) = a0 b0 + v a1 b1 + ((a0 + a1)(b0 + b1) - a0 b0 - a1 b1) w
-template <typename F>
-BLS_NOINLINE void f12_mul(fp12_t<F> &r, const fp12_t<F> &x, const fp12_t<F> &y) {
-    fp6_t<F> t0, t1, s, u;
-    f6_mul(t0, x.a, y.a);
-    f6_mul(t1, x.b, y.b);
-    f6_add(s, x.a, x.b);
-    f6_add(u, y.a, y.b);
-    f6_mul(s, s, u);
-    f6_add(u, t0, t1);
-    f6_sub(r.b, s, u);
-    f6_mul_by_v(t1, t1);
-    f6_add(r.a, t0, t1);
-}
-
 // (a + b w)^2 = (a + b)(a + v b) - ab - v ab + 2ab w
 template <typename F>
 BLS_NOINLINE void f12_sqr(fp12_t<F> &r, const fp12_t<F> &x) {
@@ -391,110 +378,4 @@ BLS_INLINE void f2_gamma(fp2_t<rns_w> &r, int p, int k) {
     const int(*g)[2][RNS_N] = p == 1 ? RNS_GAMMA1 : RNS_GAMMA2;
     fp_load(r.c0, (const uint32_t *)g[k][0]);
     fp_load(r.c1, (const uint32_t *)g[k][1]);
-}
-
-// f^p: coefficient k conjugated, times gamma1^k
-template <typename F>
-BLS_NOINLINE void f12_frobenius(fp12_t<F> &r, const fp12_t<F> &x) {
-    fp12_t<F> y = x;
-    for (int k = 0; k < 6; ++k) {
-        fp2_t<F> g, c;
-        f2_gamma(g, 1, k);
-        f2_conj(c, f12_coeff(y, k));
-        f2_mul(f12_coeff(y, k), c, g);
-    }
-    r = y;
-}
-
-// f^(p^2): coefficient k times gamma2^k
-template <typename F>
-BLS_NOINLINE void f12_frobenius2(fp12_t<F> &r, const fp12_t<F> &x) {
-    fp12_t<F> y = x;
-    for (int k = 0; k < 6; ++k) {
-        fp2_t<F> g;
-        f2_gamma(g, 2, k);
-        f2_mul(f12_coeff(y, k), f12_coeff(y, k), g);
-    }
-    r = y;
-}
-
-// Granger-Scott squaring of a unitary f: with s = w^3 and f = A + B w + C w^2
-// over Fp4 = Fp2[s], A = (c0, c3), B = (c1, c4), C = (c2, c5),
-// f^2 = (3A^2 - 2 conj A) + (3 s C^2 + 2 conj B) w + (3B^2 - 2 conj C) w^2
-template <typename F>
-BLS_NOINLINE void f12_cyclotomic_sqr(fp12_t<F> &r, const fp12_t<F> &f) {
-    fp12_t<F> x = f;
-    fp2_t<F> re[3], im[3];
-    for (int k = 0; k < 3; ++k) {  // A, B, C: (a + b s)^2 = (a^2 + xi b^2) + 2ab s
-        const fp2_t<F> &a = f12_coeff(x, k);
-        const fp2_t<F> &b = f12_coeff(x, k + 3);
-        fp2_t<F> a2, b2, ab;
-        f2_sqr(a2, a);
-        f2_sqr(b2, b);
-        f2_mul(ab, a, b);
-        f2_mul_xi(b2, b2);
-        f2_add(re[k], a2, b2);
-        f2_add(im[k], ab, ab);
-    }
-    fp2_t<F> t, u;
-    // 3t - 2c or 3t + 2c into coefficient k
-#define BLS_CYC(k, tv, sign)                  \
-    f2_add(t, tv, tv);                        \
-    f2_add(t, t, tv);                         \
-    f2_add(u, f12_coeff(x, k), f12_coeff(x, k)); \
-    if (sign) f2_add(f12_coeff(r, k), t, u);  \
-    else f2_sub(f12_coeff(r, k), t, u);
-    BLS_CYC(0, re[0], 0)
-    BLS_CYC(3, im[0], 1)
-    fp2_t<F> xic;
-    f2_mul_xi(xic, im[2]);
-    BLS_CYC(1, xic, 1)
-    BLS_CYC(4, re[2], 0)
-    BLS_CYC(2, re[1], 0)
-    BLS_CYC(5, im[1], 1)
-#undef BLS_CYC
-}
-
-// f^x for unitary f, x < 0: the conjugate of f^|x| (the 63 bits of |x|
-// below its top one, rolled)
-template <typename F>
-BLS_NOINLINE void f12_pow_x(fp12_t<F> &r, const fp12_t<F> &f) {
-    fp12_t<F> base = f, acc = f;
-#pragma unroll 1
-    for (int i = 62; i >= 0; --i) {
-        f12_cyclotomic_sqr(acc, acc);
-        if ((X_ABS >> i) & 1) f12_mul(acc, acc, base);
-    }
-    f12_conj(r, acc);
-}
-
-// The cube of the reduced pairing (consensus_specs_tpu/ops/bls12_jax.py:611):
-// the easy part f^((p^6 - 1)(p^2 + 1)), then the hard part
-// (x-1)^2 (x+p) (x^2+p^2-1) + 3 = 3 (p^4 - p^2 + 1)/r.
-template <typename F>
-BLS_NOINLINE void final_exponentiation(fp12_t<F> &r, const fp12_t<F> &m) {
-    fp12_t<F> f, t, a, b, c, x;
-    f12_conj(t, m);
-    f12_inv(f, m);
-    f12_mul(f, t, f);
-    f12_frobenius2(t, f);
-    f12_mul(f, t, f);
-    f12_pow_x(x, f);
-    f12_conj(t, f);
-    f12_mul(a, x, t);  // f^(x-1)
-    f12_pow_x(x, a);
-    f12_conj(t, a);
-    f12_mul(a, x, t);  // ^(x-1)^2
-    f12_pow_x(x, a);
-    f12_frobenius(t, a);
-    f12_mul(b, x, t);  // ^(x+p)
-    f12_pow_x(x, b);
-    f12_pow_x(x, x);
-    f12_frobenius2(t, b);
-    f12_mul(c, x, t);
-    f12_conj(t, b);
-    f12_mul(c, c, t);  // ^(x^2+p^2-1)
-    f12_sqr(t, f);
-    f12_mul(t, t, f);
-    f12_mul(r, c, t);
 }

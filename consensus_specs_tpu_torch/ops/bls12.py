@@ -32,7 +32,9 @@ is not free is where the JAX package's values depend on a representative:
 Kernels (csrc/rlc.cu, csrc/pairing.cu, csrc/msm.cu; the towers in
 csrc/tower.cuh and the curves in csrc/curve.cuh are templates over the base
 field: the limb field of csrc/fp.cuh, one thread an item, or the RNS field
-of csrc/fp_rns.cuh, one warp an item, for K9-K12):
+of csrc/fp_rns.cuh, one warp an item, for K9-K12; K12's exponentiation runs
+on a group of such units, csrc/f12_group.cuh, and K10's limb G1 sums on
+four-lane groups, csrc/g1_lanes.cuh):
 - K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
   (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
   in the same thread where asked (:868);
@@ -42,8 +44,9 @@ of csrc/fp_rns.cuh, one warp an item, for K9-K12):
 - K11 `miller_loop` (:514);
 - K12 `final_exp`: the final exponentiation and `f12_is_one` (:611, :628),
   by item (`pairing_cube_batch` :762, `pairing_check_batch` :768) or after a
-  one-block tree product (`f12_prod_reduce` :1061, `rlc_tail` :1219);
-- K25 `f12_product`: that one-block tree product alone, no exponentiation
+  tree product, a launch a level (`f12_prod_reduce` :1061, `rlc_tail`
+  :1219);
+- K25 `f12_product`: that tree product alone, no exponentiation
   (`f12_prod_reduce` :1061 as the mesh collectives use it);
 - K13 `g1_msm` (csrc/msm.cu): the windowed bucket MSM (`g1_msm_pippenger`
   :1291), affine out;
@@ -193,7 +196,7 @@ def _limb_const(rows, like: torch.Tensor) -> torch.Tensor:
 class _LimbField:
     """Sixteen-bit limbs (..., 24) int64, every value canonical (ops/fp.py)."""
     words = NWORDS  # int32 words an element at the kernels' boundary
-    units = 64      # K10's units a block (csrc/rlc.cu SUM_THREADS)
+    units = 64      # K10's units a block (csrc/rlc.cu SUM_UNITS)
     add, sub, neg = staticmethod(fp_add), staticmethod(fp_sub), staticmethod(fp_neg)
     mul, sqr, inv = staticmethod(fp_mul), staticmethod(fp_sqr), staticmethod(fp_inv)
     is_zero, is_one = staticmethod(fp_is_zero), staticmethod(fp.fp_is_one_mont)
@@ -850,8 +853,9 @@ def point_sums(pts, offsets):
     """K10: the affine sum of each segment [offsets[d], offsets[d+1]) of
     Jacobian points, G1 (N, 3, w) -> (D, 2, w) or G2 (N, 3, 2, w) ->
     (D, 2, 2, w). An empty segment sums to infinity and comes out (0, 0).
-    `offsets` (D + 1,) int64 on the points' device. Kernel on CUDA, plain on
-    the CPU."""
+    `offsets` (D + 1,) int64 on the points' device. One block a segment of
+    64 units (16 warps under RNS); the limb G1 sums run a unit on four lanes
+    (256 threads a block). Kernel on CUDA, plain on the CPU."""
     g2 = pts.dim() == 4
     w = pts.shape[-1]
     word_field(w)
@@ -951,9 +955,9 @@ def f12_product_plain(m):
 
 def f12_product(m):
     """K25: the product of the B Fp12 values m (B, 12, 12), B >= 1 -> (12,
-    12), with no final exponentiation (`f12_prod_reduce` :1061): one block
-    tree-multiplies a copy of m by the tree of K12's tail. Limb field only.
-    Kernel on CUDA, plain on the CPU."""
+    12), with no final exponentiation (`f12_prod_reduce` :1061): a copy of m
+    tree-multiplied as K12's tail does it, a launch a level. Limb field
+    only. Kernel on CUDA, plain on the CPU."""
     m = _check("f12_product", m, (12, NWORDS))
     if m.shape[0] < 1:
         raise ValueError("f12_product of no values")
@@ -996,8 +1000,9 @@ def final_exp_batch(m1, m2=None):
 def final_exp_tail(m, extra):
     """K12, tail mode: the product of the B Miller values m (B, 12, w) and
     `extra` (12, w), then one final exponentiation -> (cube (12, w), is_one
-    0-d bool). One block's units tree-multiply, one unit exponentiates.
-    Kernel on CUDA, plain on the CPU."""
+    0-d bool). The tree is a launch a level, a group of units a product,
+    then one group exponentiates (csrc/f12_group.cuh). Kernel on CUDA, plain
+    on the CPU."""
     w = m.shape[-1]
     word_field(w)
     m = _check("final_exp_tail", m, (12, w))
@@ -1429,10 +1434,14 @@ def cuda_constants_header() -> str:
 __device__ __constant__ uint32_t FP_P[12] = {words(P)};
 __device__ __constant__ uint32_t FP_ONE[12] = {words(fp.R_MOD_P)};
 __device__ __constant__ uint32_t FP_R2[12] = {words(fp.R2_MOD_P)};
-// exponents (plain integers): p - 2 (inverse), (p + 1) / 4 (square root)
-__device__ __constant__ uint32_t FP_EXP_INV[12] = {words(P - 2)};
+// the square root's exponent (a plain integer), (p + 1) / 4
 __device__ __constant__ uint32_t FP_EXP_SQRT[12] = {words((P + 1) // 4)};
 #define FP_N0 0x{fp.N0_32:08x}u  // -p^-1 mod 2^32
+// the inverse's constants (csrc/fp.cuh fp_inv): p in 30-bit limbs, p^-1 mod
+// 2^30, and R^3 mod p, the product that takes (aR)^-1 to a^-1 R
+__device__ __constant__ int32_t FP_P30[{fp.S30_LIMBS}] = {{{", ".join(f"0x{l:08x}" for l in fp.int_to_s30(P))}}};
+#define FP_PINV30 0x{fp.P_INV30:08x}u
+__device__ __constant__ uint32_t FP_R3[12] = {words(fp.R3_MOD_P)};
 // beta, the cube root of unity of the subgroup check's phi(x, y) = (beta·x, y)
 __device__ __constant__ uint32_t FP_BETA[12] = {words(fp.to_mont(BETA))};
 #define X_ABS 0x{ABS_X:016x}ull  // |x|, the BLS parameter

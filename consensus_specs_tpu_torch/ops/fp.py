@@ -229,6 +229,116 @@ def fp_inv(a: torch.Tensor) -> torch.Tensor:
     return fp_pow(a, P - 2)
 
 
+# --- the kernels' inverse: Bernstein-Yang divsteps over 30-bit signed limbs -----
+
+M30 = (1 << 30) - 1
+S30_LIMBS = 13  # 390 bits: p and every intermediate with its sign
+GCD_ROUNDS = 37  # x 30 divsteps = 1,110 >= floor((49·381 + 57)/17) = 1,101
+P_INV30 = pow(P, -1, 1 << 30)
+R3_MOD_P = R * R * R % P
+
+
+def _i32(x: int) -> int:
+    """x as the int32 that keeps its low 32 bits."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def int_to_s30(x: int) -> list[int]:
+    """0 <= x < 2^390 -> 13 limbs of 30 bits, little-endian."""
+    return [(x >> (30 * i)) & M30 for i in range(S30_LIMBS)]
+
+
+def _divsteps30(eta: int, f0: int, g0: int) -> tuple:
+    """30 divsteps on the low words of f and g (csrc/fp.cuh `fp_divsteps30`):
+    uint32 arithmetic, masks for the branches; returns eta and the
+    transition matrix (u, v, q, r), each an int32."""
+    u, v, q, r, f, g = 1, 0, 0, 1, f0 & 0xFFFFFFFF, g0 & 0xFFFFFFFF
+    w = 0xFFFFFFFF
+    for _ in range(30):
+        c1 = (eta >> 31) & w
+        c2 = (-(g & 1)) & w
+        x, y, z = ((f ^ c1) - c1) & w, ((u ^ c1) - c1) & w, ((v ^ c1) - c1) & w
+        g, q, r = (g + (x & c2)) & w, (q + (y & c2)) & w, (r + (z & c2)) & w
+        c1 &= c2
+        eta = _i32((eta ^ _i32(c1)) - (_i32(c1) + 1))
+        f, u, v = (f + (g & c1)) & w, (u + (q & c1)) & w, (v + (r & c1)) & w
+        g, u, v = g >> 1, (u << 1) & w, (v << 1) & w
+    return eta, tuple(_i32(t) for t in (u, v, q, r))
+
+
+def _update_fg30(f: list, g: list, t: tuple) -> None:
+    """[f, g] <- t·[f, g] / 2^30 (exact), limb by limb with int64 carries."""
+    u, v, q, r = t
+    cf = (u * f[0] + v * g[0]) >> 30
+    cg = (q * f[0] + r * g[0]) >> 30
+    for i in range(1, S30_LIMBS):
+        cf += u * f[i] + v * g[i]
+        cg += q * f[i] + r * g[i]
+        f[i - 1], cf = cf & M30, cf >> 30
+        g[i - 1], cg = cg & M30, cg >> 30
+    f[-1], g[-1] = _i32(cf), _i32(cg)
+
+
+def _update_de30(d: list, e: list, t: tuple, p30: list) -> None:
+    """[d, e] <- t·[d, e] / 2^30 mod p, both kept in (-2p, p): the
+    multiples md, me of p that clear the low 30 bits are added first."""
+    u, v, q, r = t
+    sd, se = d[-1] >> 31, e[-1] >> 31
+    md = (u & sd) + (v & se)
+    me = (q & sd) + (r & se)
+    cd = u * d[0] + v * e[0]
+    ce = q * d[0] + r * e[0]
+    md = _i32(md - ((P_INV30 * (cd & 0xFFFFFFFF) + md) & M30))
+    me = _i32(me - ((P_INV30 * (ce & 0xFFFFFFFF) + me) & M30))
+    cd = (cd + p30[0] * md) >> 30
+    ce = (ce + p30[0] * me) >> 30
+    for i in range(1, S30_LIMBS):
+        cd += u * d[i] + v * e[i] + p30[i] * md
+        ce += q * d[i] + r * e[i] + p30[i] * me
+        d[i - 1], cd = cd & M30, cd >> 30
+        e[i - 1], ce = ce & M30, ce >> 30
+    d[-1], e[-1] = _i32(cd), _i32(ce)
+
+
+def _normalize30(d: list, sign: int, p30: list) -> None:
+    """d in (-2p, p) -> d·sign(f) in [0, p): add p if negative, negate if f
+    is, carry, add p if still negative, carry."""
+    neg = d[-1] >> 31
+    d[:] = [di + (pi & neg) for di, pi in zip(d, p30)]
+    flip = sign >> 31
+    d[:] = [(di ^ flip) - flip for di in d]
+    for i in range(S30_LIMBS - 1):
+        d[i + 1] += d[i] >> 30
+        d[i] &= M30
+    neg = d[-1] >> 31
+    d[:] = [di + (pi & neg) for di, pi in zip(d, p30)]
+    for i in range(S30_LIMBS - 1):
+        d[i + 1] += d[i] >> 30
+        d[i] &= M30
+
+
+def gcd_inverse_int(x: int) -> tuple[int, int]:
+    """x^-1 mod p (0 for x = 0) for 0 <= x < p, step for step as the
+    kernels' `fp_inv` (csrc/fp.cuh) computes it before its product by R^3:
+    GCD_ROUNDS rounds of 30 divsteps from (eta, f, g, d, e) = (-1, p, x, 0,
+    1). Returns (the inverse, the last round at which g was still nonzero,
+    -1 if g started at 0), so a test can see how far below the fixed count
+    the input finished."""
+    p30 = int_to_s30(P)
+    f, g = list(p30), int_to_s30(x)
+    d, e = [0] * S30_LIMBS, [1] + [0] * (S30_LIMBS - 1)
+    eta, last = -1, -1
+    for rnd in range(GCD_ROUNDS):
+        if any(g):
+            last = rnd
+        eta, t = _divsteps30(eta, f[0], g[0])
+        _update_de30(d, e, t, p30)
+        _update_fg30(f, g, t)
+    assert not any(g), "divsteps did not reach g = 0"
+    _normalize30(d, f[-1], p30)
+    return sum(di << (30 * i) for i, di in enumerate(d)), last
+
+
 def fp_sqrt_candidate(a: torch.Tensor) -> torch.Tensor:
     """a^((p+1)/4): the square root where a is a square (p = 3 mod 4)."""
     return fp_pow(a, (P + 1) // 4)

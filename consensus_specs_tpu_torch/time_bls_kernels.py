@@ -1,0 +1,120 @@
+"""Time K8's inverse, K10, K12 and K25 in any checkout of the port, so that
+two checkouts can be timed in turns on one card.
+
+    python3 consensus_specs_tpu_torch/time_bls_kernels.py [--root CHECKOUT] [--out FILE]
+
+Imports `consensus_specs_tpu_torch` from CHECKOUT (default: the checkout
+this file is in), builds its kernels there, and times with CUDA events, at
+the main path's shapes: K8 op 5 (the inverse) at M = 256; K10's committee
+sum (`g1_aggregate`, one 512-key segment), its G2 collapse at N = 256 and
+its grouped G1 sums (64 segments of 16); K12's tail at B = 257 and its
+batch mode at 256 items with m2, in the limb field and over RNS residues;
+K25 at B = 256 and 1,024. The inputs are seeded and made with the
+checkout's own wrappers (keys sk_0 + j as `crypto/msm_synthetic` makes a
+committee, G2 points from K9's ladders over 8 hashed messages, Miller values
+from K11 over 8 pairs, tiled), so two checkouts see the same inputs; every
+output's sha256 is printed beside its time, and two checkouts that compute
+the same function print the same digests. Prints one JSON object (and
+writes it to FILE): the card, the checkout, and per row its ms and digest.
+Needs a card; exits nonzero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(Path(args.root).resolve()))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
+    from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
+    from consensus_specs_tpu_torch.engine.convert import rns_from_words
+    from consensus_specs_tpu_torch.kernels import build
+    from consensus_specs_tpu_torch.ops import bls12 as B
+    from consensus_specs_tpu_torch.ops import fp
+
+    pkg = Path(B.__file__).resolve().parents[1]
+    build.build_all(("fp", "rlc", "pairing"))
+    dev = torch.device("cuda")
+    F1 = oracle.FP_FIELD
+    rng = np.random.default_rng(0)
+    sk0 = int(rng.integers(1, 2**62))
+    pt, keys = oracle.pt_mul(F1, oracle.G1_GEN, sk0), []
+    for _ in range(512):
+        keys.append(oracle.pt_to_affine(F1, pt))
+        pt = oracle.pt_add(F1, pt, oracle.G1_GEN)
+    committee = B._jacobian_words(keys, 0, dev)
+    hs = [hash_to_curve_g2(b"time_bls_kernels %d" % i) for i in range(8)]
+    q8 = B.g2_to_words(hs)
+    p_aff = B.g1_to_words(keys)
+    z = zbits_from_ints([int(v) for v in rng.integers(1, 2**63, 1024, dtype=np.int64)]).to(dev)
+    g1j, _ = B.rlc_ladders(torch.cat([p_aff, p_aff]).to(dev), None, z, affine_g1=False)
+    _, g2j = B.rlc_ladders(None, q8[torch.arange(256) % 8].to(dev), z[:256])
+    seg16 = torch.arange(0, 1025, 16, device=dev)
+    idx = torch.arange(513) % 8
+    m = B.miller_loop(q8[idx].to(dev), p_aff[idx].to(dev))
+    m1, m2 = m[:256].contiguous(), torch.roll(m, 3, 0)[:256].contiguous()
+    r257, r1, r2 = (rns_from_words(t.cpu()).to(dev) for t in (m[:257], m1, m2))
+    inv_in = torch.from_numpy(fp.ints_to_words(
+        [int.from_bytes(rng.bytes(48), "little") % fp.P for _ in range(256)])).to(dev)
+    f12 = torch.from_numpy(fp.ints_to_mont_words(
+        [int.from_bytes(rng.bytes(48), "little") % fp.P for _ in range(12 * 1024)])).reshape(
+        1024, 12, 12).to(dev)
+
+    rows = {
+        "fp_ops_inv_M256": (lambda: fp.fp_ops(fp.OP_INV, inv_in), 20),
+        "point_sums_g1_aggregate_512": (lambda: B.g1_aggregate(committee), 20),
+        "point_sums_g2_N256": (lambda: B.point_sums(g2j, torch.tensor([0, 256], device=dev)),
+                               10),
+        "point_sums_g1_64x16": (lambda: B.point_sums(g1j, seg16), 10),
+        "final_exp_tail_B257": (lambda: B.final_exp_tail(m[:256], m[256]), 3),
+        "final_exp_batch_256": (lambda: B.final_exp_batch(m1, m2), 3),
+        "final_exp_rns_tail_B257": (lambda: B.final_exp_tail(r257[:256], r257[256]), 3),
+        "final_exp_rns_batch_256": (lambda: B.final_exp_batch(r1, r2), 3),
+        "f12_product_B256": (lambda: B.f12_product(f12[:256]), 5),
+        "f12_product_B1024": (lambda: B.f12_product(f12), 5),
+    }
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"card": card, "package": str(pkg), "rows": {}}
+    for name, (fn, reps) in rows.items():
+        res = fn()
+        torch.cuda.synchronize()
+        res = res if isinstance(res, tuple) else (res,)
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in res)).hexdigest()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out["rows"][name] = {"ms": start.elapsed_time(end) / reps, "reps": reps,
+                             "sha256": digest[:16]}
+        print(f"{name}: {out['rows'][name]['ms']:.5f} ms ({reps} reps) {digest[:16]}",
+              flush=True)
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

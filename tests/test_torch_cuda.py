@@ -310,18 +310,38 @@ def _bls_items(n, messages, seed):
     return tbls.g1_to_words(pks), tbls.g2_to_words(hs), tbls.g2_to_words(sigs)
 
 
+_FP_EDGES = [0, 1, tfp.P - 1, tfp.R_MOD_P, 2, 1 << 380, tfp.P - 2, (tfp.P - 1) // 2]
+
+
 @pytest.mark.parametrize("op", range(7))
 @pytest.mark.parametrize("m", [1, 130])
 def test_fp_ops_kernel_matches_plain(cuda, op, m):
     rng = np.random.default_rng(op + m)
     vals = [int.from_bytes(rng.bytes(48), "little") % tfp.P for _ in range(2 * m)]
-    vals[:2] = [0, tfp.P - 1] if m > 1 else vals[:2]
+    if m > 1:  # the field's edges (op 5, the divstep inverse: 0 maps to 0)
+        vals[:len(_FP_EDGES)] = _FP_EDGES
     w = torch.from_numpy(tfp.ints_to_words(vals))
     a, b = w[:m], w[m:]
     binary = op in tfp._BINARY
     with _counted("fp_ops"):
         got = tfp.fp_ops(op, a.to(cuda), b.to(cuda) if binary else None)
     assert torch.equal(got.cpu(), tfp.fp_ops_plain(op, a, b if binary else None))
+
+
+def test_fp_inverse_kernel_is_the_divstep_inverse(cuda):
+    """K8 op 5 (csrc/fp.cuh's divstep inverse, then a product by R^3) on the
+    edges, the powers of two and 64 seeded values: the plain version's
+    Fermat words, and the host mirror's inverse of the same Montgomery
+    value."""
+    rng = np.random.default_rng(55)
+    vals = _FP_EDGES + [1 << k for k in range(0, 381, 19)] + [
+        int.from_bytes(rng.bytes(48), "little") % tfp.P for _ in range(64)]
+    w = torch.from_numpy(tfp.ints_to_words(vals))
+    with _counted("fp_ops"):
+        got = tfp.fp_ops(tfp.OP_INV, w.to(cuda))
+    assert torch.equal(got.cpu(), tfp.fp_ops_plain(tfp.OP_INV, w))
+    mirror = [tfp.gcd_inverse_int(x)[0] * tfp.R % tfp.P * tfp.R % tfp.P for x in vals]
+    assert tfp.words_to_ints(got.cpu()) == mirror
 
 
 def test_to_mont_words_on_card(cuda):
@@ -352,6 +372,69 @@ def test_point_sums_kernel_matches_plain(cuda, g2):
     with _counted("point_sums"):
         got = tbls.point_sums(pts.to(cuda), off.to(cuda))
     assert torch.equal(got.cpu(), tbls.point_sums_plain(pts, off))
+
+
+def _edge_segments():
+    """K10's G1 edge segments: P + (-P), Q + Q + S, pads among keys, pads
+    alone, and the block's first 512-key committee; (Jacobian words,
+    offsets)."""
+    F1 = bls_oracle.FP_FIELD
+    rng = np.random.default_rng(41)
+    keys = [bls_oracle.pt_to_affine(F1, bls_oracle.pt_mul(F1, bls_oracle.G1_GEN, int(k)))
+            for k in rng.integers(1, 2**62, 5, dtype=np.int64)]
+    neg = (keys[0][0], (-keys[0][1]) % bls_oracle.P)
+    edge = tbls._jacobian_words([keys[0], neg, keys[1], keys[1], keys[2], keys[3], keys[4]],
+                                8, "cpu")
+    edge = torch.cat([edge[:5], edge[7:11], edge[5:7], edge[11:]])  # pads among keys
+    committee = tbls._jacobian_words(msm_synthetic.committee_keys(0)[0], 0, "cpu")
+    pts = torch.cat([edge, committee])
+    return pts, torch.tensor([0, 2, 5, 11, 15, 527])
+
+
+def test_point_sums_kernel_on_a_committee_and_edge_segments(cuda):
+    """K10's limb G1 instance (four-lane groups, 256 threads a segment) on
+    the edge segments and a 512-key committee, bit-equal to the plain
+    version; the committee also alone, as g1_aggregate sums it, equal to
+    the oracle's [sum sk]·G1."""
+    pts, off = _edge_segments()
+    with _counted("point_sums"):
+        got = tbls.point_sums(pts.to(cuda), off.to(cuda))
+    want = tbls.point_sums_plain(pts, off)
+    assert torch.equal(got.cpu(), want)
+    assert tbls._affine_or_none(want[0]) is None
+    agg = tbls.g1_aggregate(pts[15:].to(cuda))
+    assert torch.equal(agg.cpu(), want[-1])
+    assert tbls._affine_or_none(agg.cpu()) == msm_synthetic.committee_keys(0)[1]
+
+
+def _final_exp_inputs(field, b, cuda):
+    """b Miller values on the card (8 distinct pairs' values, tiled) and b
+    more for m2, in the limb field or as RNS residues."""
+    items = (_rns_bls_items if field == "rns" else _bls_items)(8, 8, 36)
+    p, q, _ = items
+    m = tbls.miller_loop(q.to(cuda), p.to(cuda))
+    idx = torch.arange(2 * b, device=cuda) % 8
+    rolled = torch.roll(m, 3, 0)[idx]
+    return m[idx[:b]].contiguous(), rolled[b:].contiguous()
+
+
+@pytest.mark.parametrize("field", ["limb", "rns"])
+@pytest.mark.parametrize("b", [1, 3, 64, 257])
+def test_final_exp_kernel_at_batch_and_tail_sizes(cuda, field, b):
+    """K12's group exponentiation (16 lanes under limb, 8 warps under RNS)
+    bit-equal to the plain version on the card's tensors: batch mode at 1, 3
+    and 64 items (with m2 at 3), and the tail at 257 values (256 and the
+    extra), as the block flush gives it."""
+    m1, m2 = _final_exp_inputs(field, b, cuda)
+    name = "final_exp_rns" if field == "rns" else "final_exp"
+    with _counted(name):
+        if b == 257:
+            got = tbls.final_exp_tail(m1[:-1], m1[-1])
+        else:
+            got = tbls.final_exp_batch(m1, m2 if b == 3 else None)
+    want = (tbls.final_exp_tail_plain(m1[:-1], m1[-1]) if b == 257 else
+            tbls.final_exp_batch_plain(m1, m2 if b == 3 else None))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_miller_and_final_exp_kernels_match_plain(cuda):
@@ -1087,7 +1170,7 @@ class _OneRank:
         return t[None].clone()
 
 
-@pytest.mark.parametrize("b", [1, 2, 3, 256, 1025])
+@pytest.mark.parametrize("b", [1, 2, 3, 256, 257, 1025])
 def test_f12_product_kernel_matches_plain(cuda, b):
     rng = np.random.default_rng(b)
     ints = [int.from_bytes(rng.bytes(48), "little") % tfp.P for _ in range(12 * b)]

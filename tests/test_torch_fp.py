@@ -69,6 +69,40 @@ def test_field_pow_ops_match_jax_limbs(op):
         assert prod[1:] == [fp.R_MOD_P] * (len(a) - 1)
 
 
+def _gcd_inputs(kind):
+    if kind == "edges":
+        return [0, 1, P - 1, fp.R_MOD_P, P - 2, 2, (P - 1) // 2]
+    if kind == "powers_of_two":
+        return [1 << k for k in range(0, 381, 20)] + [1 << 380]
+    rng = np.random.default_rng(14)
+    return [int.from_bytes(rng.bytes(48), "little") % P for _ in range(64)]
+
+
+@pytest.mark.parametrize("kind", ["edges", "powers_of_two", "seeded"])
+def test_gcd_inverse_mirror_matches_fermat_and_jax(kind):
+    """ops/fp.py `gcd_inverse_int`, the kernels' divstep inverse step for step
+    over 30-bit limbs, gives pow(x, p - 2, p) (0 for 0) within its fixed
+    37 rounds, and with the kernel's product by R^3 JAX's Montgomery
+    inverse (limb_mont.inv) of the same words."""
+    xs = _gcd_inputs(kind)
+    got = [fp.gcd_inverse_int(x) for x in xs]
+    assert [g for g, _ in got] == [pow(x, P - 2, P) for x in xs]
+    assert all(last < fp.GCD_ROUNDS - 4 for _, last in got)  # g reached 0 early
+    mont = [g * fp.R3_MOD_P * pow(fp.R, -1, P) % P for g, _ in got]
+    want = convert.fp_from_jax_limbs(np.asarray(fp_jax.fp_inv(_jax_limbs(xs))))
+    assert mont == fp.words_to_ints(want)
+
+
+def test_gcd_inverse_constants():
+    """The header's inverse constants: p in 13 limbs of 30 bits, p^-1 mod
+    2^30, R^3 mod p; 37 rounds cover Bernstein-Yang's divstep bound for
+    381-bit inputs."""
+    assert sum(l << (30 * i) for i, l in enumerate(fp.int_to_s30(P))) == P
+    assert P * fp.P_INV30 % (1 << 30) == 1
+    assert fp.R3_MOD_P == pow(2, 3 * 384, P)
+    assert 30 * fp.GCD_ROUNDS >= (49 * P.bit_length() + 57) // 17
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 5, 8])
 def test_sum_stack_matches_jax(k):
     vals = np.stack([_jax_limbs(_values(20 + j, 12)) for j in range(k)])

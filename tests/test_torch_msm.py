@@ -216,6 +216,42 @@ def test_subgroup_chain_op_counts():
     assert fp.plain_muls - before == 126 * 7 + 10 * 16 + 9 == 1051
 
 
+def _segments(case):
+    """(Jacobian words, segment lengths, each segment's affine sum) of one
+    segment_sums case."""
+    keys = _seeded_points(31, 6)
+    if case == "committee":  # the block's first committee, 512 keys
+        pts, total = msm_synthetic.committee_keys(0)
+        return B._jacobian_words(pts, 0, "cpu"), [512], [total]
+    if case == "opposite":  # P + (-P), Q + (-Q) + S, a lone key
+        pts = [keys[0], _neg(keys[0]), keys[1], _neg(keys[1]), keys[2], keys[3]]
+        return B._jacobian_words(pts, 0, "cpu"), [2, 3, 1], [None, keys[2], keys[3]]
+    if case == "double":  # P + P (the complete add's double), Q + Q + S, G + 2G + G
+        two = _points([2])[0]
+        pts = [keys[0], keys[0], keys[1], keys[1], keys[2], oracle.G1_GEN_AFF, two,
+               oracle.G1_GEN_AFF]
+        want = [_host_msm(keys[:1], [2]), _host_msm(keys[1:3], [2, 1]), _points([4])[0]]
+        return B._jacobian_words(pts, 0, "cpu"), [2, 3, 3], want
+    # pads: Jacobian zeros among six keys, then a segment of pads alone
+    words = B._jacobian_words(keys, 10, "cpu")
+    words = torch.cat([words[:2], words[6:10], words[2:6], words[10:]])
+    return words, [10, 6], [_host_msm(keys, [1] * 6), None]
+
+
+@pytest.mark.parametrize("case", ["committee", "opposite", "double", "pads"])
+def test_segment_sums_do_not_depend_on_the_units(case):
+    """K10's limb G1 sums are affine, one canonical encoding a point, so the
+    order of the adds does not show: the plain version's 64 units (the
+    kernel's 64 four-lane groups) and 256 units (one thread a unit over 256
+    threads) give equal words, and the oracle's sums."""
+    words, lengths, want = _segments(case)
+    offsets = torch.tensor(np.concatenate([[0], np.cumsum(lengths)]), dtype=torch.int64)
+    sums = [fp.to_words(B.segment_sums_limbs(B._Fp, fp.to_limbs(words), offsets, units))
+            for units in (64, 256)]
+    assert torch.equal(sums[0], sums[1])
+    assert [B._affine_or_none(s) for s in sums[0]] == want
+
+
 def test_aggregate_matches_jax():
     pts = _seeded_points(12, 40)
     got = B.g1_aggregate_device(pts, device="cpu")
