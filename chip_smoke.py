@@ -20,10 +20,11 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    twin), K6 dirty_scan and K7 path_fold on a state with crafted dirty
    rows (a case under the 1024-row budget, one over it that takes the
    full rebuild, and the record_state_root / record_block_root path);
-   K8-K12 (the BLS field, ladders, point sums, Miller loop and final
-   exponentiation) on 8 seeded items with the field's edge values, z = 1
-   and 2^64 - 1 and an empty segment, and two pairing cubes against the
-   copied oracle; K13 g1_msm on 8 items (64- and 255-bit scalars, windows 4
+   K8-K10 (the BLS field, ladders, point sums) and K12's batch mode on 8
+   seeded items with the field's edge values, z = 1 and 2^64 - 1 and an
+   empty segment, and two pairing cubes against the copied oracle (K11,
+   K12's tail and its batch with m2 are held at the paths' shapes in
+   phase 6); K13 g1_msm on 8 items (64- and 255-bit scalars, windows 4
    and 5, a zero scalar, 2^64 - 1, a repeated point, a P + (-P) pair) and
    K14 g1_subgroup on 8 points (a pad and
    the on-curve (0, 2) outside the subgroup) and on
@@ -36,11 +37,11 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    K24 rns_ops at all 11 op codes on 300 seeded residue vectors with the
    field's edges (0, 1, p, 2p, -1, -p, R, 3p - 1), sum_stack over 1, 3 and 8
    rows, mont_reduce also on wide products and on 127 inputs whose q lies
-   next to M_A/4 (the float32 alpha's boundary); K9-K12's RNS instances (one
-   warp an item over csrc/fp_rns.cuh) at 4 items, each bit-equal to the RNS
-   plain version (z = 0, 1, 2^64 - 1, an empty segment); K25 f12_product over the 8
-   Miller values of the K8-K12 check, and K3's epoch_combine over 4 ranks'
-   vectors at its three stages;
+   next to M_A/4 (the float32 alpha's boundary); K9's and K10's RNS
+   instances at 4 items, each bit-equal to the RNS plain version (z = 0, 1,
+   2^64 - 1, an empty segment; K11's and K12's at the paths' shapes in
+   phase 6); K25 f12_product over the 8 Miller values of the K8-K12 check,
+   and K3's epoch_combine over 4 ranks' vectors at its three stages;
 4. the main path: a synthetic altair-mainnet registry of N = 2**20
    validators on the card, the resident Merkle cache built, one warm-up
    epoch and a refresh, 8 resident epochs timed with CUDA events (epoch 256
@@ -48,11 +49,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    `device_roots()` for the 8 owed epochs, and single epochs each followed
    by a timed `device_roots()`. Launch counts are zeroed just before and
    read just after; the comparisons below are not counted. At every
-   refresh the 14 cached roots must equal `field_roots` and the plain
-   path's; the state after one and after nine epochs must equal the plain
-   path's on the card, the historical batch root a hashlib fold of the
-   same vectors, and the rotation's 512 indices the plain sampler's on the
-   same columns. Both refresh branches (K7 and the full rebuild) must run;
+   refresh the 14 cached roots must equal `field_roots`, and the plain
+   path's at the first refresh of each branch (build, full, masked, none)
+   and after the 8 epochs; the state after one and after nine epochs must
+   equal the plain path's on the card, the historical batch root a hashlib
+   fold of the same vectors, and the rotation's 512 indices the plain
+   sampler's on the same columns. Both refresh branches (K7 and the full rebuild) must run;
 5. the BLS path, its launch counts zeroed just before and read just after:
    the signature flush of one altair block at N = 2**20 (131 checks with
    distinct messages: the randomized check bucketed to 256, 257 Miller
@@ -113,9 +115,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    activation_eligibility_epoch, exit_epoch; 2**18 chunks each), the proof
    bench's queries (`proofs/lane`: RandomState(2302), 341 distinct leaves a
    column, round-robin, 2,046 in all) in flushes of 512 through the port's
-   Scheduler, MerkleWorkClass, `multiproof_batch`, K20 and K21. Three
+   Scheduler, MerkleWorkClass, `multiproof_batch`, K20 and K21. Two
    rounds: cold, then an epoch, `note_epoch(loop.dirty_columns())` and a
-   warm round, twice. Launch counts are zeroed before the first round and
+   warm round. Launch counts are zeroed before the first round and
    read after the last. Every branch of every round verifies against its
    column's root (the port's host `merkleize_chunks`), 8 a round equal
    `build_chunk_proof`; the hits, misses and invalidations must be what
@@ -223,15 +225,18 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    version's Fp products x 3,716 lane instructions; ptxas's registers, stack
    and spills of K10's and K12's instances and of K12's tree level, and K8
    op 5's SASS (the divstep inverse: its round loop x 37 rounds, the rest,
-   one product) against Fermat's 608 products; K25 at the B phase 5i gave it
+   one product) against Fermat's 608 products, and of K9's and K11's entries,
+   ladders and program interpreters, an instance each; K25 at the B phase 5i gave it
    (1,024 and 256: a rank's shard of the ungrouped check at world 1 and 4;
    64 and 16: its groups) on the flush's Miller values, bit-equal to its
    plain version there, its least time the plain version's Fp products
    times K8's product instructions; epoch_combine at 1 and 4 ranks, its
    least time the vectors' bytes.
 
-The last three lines are the card, one JSON object with a row per kernel,
-and the result line {"ok": true, "device": {...}}.
+After each phase a line `phase <name> done at <s> s` gives the seconds since
+the start (also `phase_end_s` in the JSON line). The last three lines are
+the card, one JSON object with a row per kernel, and the result line
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -281,7 +286,7 @@ K19_SHAPES = ((1, 16384), (64, 1024), (256, 64), (1, 1), (2, 2))
 MULTIPROOF_SHAPES = ((8, 1 << 18, 512, False), (1, 1, 4, False), (2, 2, 8, False),
                      (4, 64, 16, True), (3, 4096, 64, False))
 PROOF_KERNELS = ("multiproof_heap", "multiproof_siblings")
-PROOF_ROUNDS = 3         # cold, then two epochs each followed by a warm round
+PROOF_ROUNDS = 2         # cold, then an epoch followed by a warm round
 PROOF_ORACLE_CHECKS = 8  # branches a round also held against build_chunk_proof
 DAS_KERNELS = ("fr_ntt", "fr_ops")
 RNS_KERNELS = ("rns_ops",)
@@ -300,6 +305,14 @@ MESH_F12_SHAPES = (1024, 256, 64, 16)  # K25's B: a rank's shard at world 1 and 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+PHASE_END_S: dict = {}  # phase -> seconds from the start of main at its end
+
+
+def phase_done(label: str) -> None:
+    PHASE_END_S[label] = time.perf_counter() - PHASE_END_S["start"]
+    print(f"phase {label} done at {PHASE_END_S[label]:.1f} s", flush=True)
 
 
 def require(cond, what: str) -> None:
@@ -368,7 +381,7 @@ PTXAS: dict = {}  # csrc name -> ptxas's report of this run's build (phase 2)
 
 
 def ptxas_function(name: str, symbol: str) -> dict:
-    """Registers, stack and spills ptxas reported for the kernel of
+    """Registers, stack and spills ptxas reported for the function of
     csrc/<name>.cu whose mangled name contains `symbol`, from this run's
     build ({} where the library was not built in this run)."""
     lines = PTXAS.get(name, "").splitlines()
@@ -491,9 +504,11 @@ class Aside:
 
 
 def check_bls_kernels(dev, err: dict) -> None:
-    """K8-K12 each bit-equal to its plain version on the card at a small
-    batch (8 items: seeded keys, three messages, z = 1 and 2^64 - 1 among the
-    scalars, an empty segment), plus a pairing cube against the oracle."""
+    """K8-K10, K12's batch mode without m2 and K25 each bit-equal to its
+    plain version on the card at a small batch (8 items: seeded keys, three
+    messages, z = 1 and 2^64 - 1 among the scalars, an empty segment), plus
+    a pairing cube against the oracle. K11, K12's tail and its batch with m2
+    are held at the paths' shapes in phase 6 (`bls_rows`)."""
     import torch
 
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
@@ -537,15 +552,10 @@ def check_bls_kernels(dev, err: dict) -> None:
         require(torch.equal(got_s, plain_s), "K10 point_sums differs from its plain version")
     q = B.g2_to_words(hs).to(dev)
     m = B.miller_loop(q, pks)
-    m_plain = B.miller_loop_plain(q, pks)
-    err["miller_loop"] = max_abs_err(m, m_plain)
-    require(torch.equal(m, m_plain), "K11 miller_loop differs from its plain version")
-    for got, plain in ((B.final_exp_batch(m), B.final_exp_batch_plain(m)),
-                       (B.final_exp_batch(m[:4], m[4:]), B.final_exp_batch_plain(m[:4], m[4:])),
-                       (B.final_exp_tail(m[:-1], m[-1]), B.final_exp_tail_plain(m[:-1], m[-1]))):
-        err["final_exp"] = max(err["final_exp"], max_abs_err(got[0], plain[0]))
-        require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
-                "K12 final_exp differs from its plain version")
+    got, plain = B.final_exp_batch(m), B.final_exp_batch_plain(m)
+    err["final_exp"] = max(err["final_exp"], max_abs_err(got[0], plain[0]))
+    require(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+            "K12 final_exp (batch) differs from its plain version")
     got, plain = B.f12_product(m), B.f12_product_plain(m)
     err["f12_product"] = max_abs_err(got, plain)
     require(torch.equal(got, plain), "K25 f12_product differs from its plain version")
@@ -553,9 +563,9 @@ def check_bls_kernels(dev, err: dict) -> None:
     for i, c in enumerate(cube):
         e = oracle.pairing(hs[i], B.affine_from_words(pks[i:i + 1], False)[0])
         require(c == oracle.f12_mul(oracle.f12_sqr(e), e), "pairing cube != oracle")
-    print(f"check K8-K12, K25: {n} items bit-equal to the plain versions (K8 all 7 ops with 0, "
-          f"1, p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty segment; K12 "
-          f"batch, batch with m2, tail; K25 over the 8 Miller values); 2 pairing cubes = oracle",
+    print(f"check K8-K10, K12, K25: {n} items bit-equal to the plain versions (K8 all 7 ops "
+          f"with 0, 1, p-1, R mod p; K9 both G1 forms with z = 1, 2^64-1; K10 with an empty "
+          f"segment; K12 batch; K25 over the 8 Miller values); 2 pairing cubes = oracle",
           flush=True)
 
 
@@ -866,7 +876,18 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
                                    "g1_four_lanes": ptxas_function("rlc", "point_sums_kernelI5fp_g4")}
     rows["final_exp"]["ptxas"] = {"final_exp": ptxas_function("pairing", "final_exp_kernelI2fp"),
                                   "tree_level": ptxas_function("pairing", "f12_level_kernelI2fp")}
-    for name in ("point_sums", "final_exp"):
+    # K9: the entry (its frame holds both halves' points, passed to the
+    # ladders by reference), the four-lane G1 ladder, the G2 ladder and the
+    # 16-lane programs' interpreter; K11: the entry and the warp's interpreter
+    rows["rlc_ladders"]["ptxas"] = {
+        "kernel": ptxas_function("rlc", "_Z18rlc_ladders_kernelI2fpEvPKjS2_S2_PjS3_xix"),
+        "g1_four_lanes": ptxas_function("rlc", "_Z14jac_scalar_mulI5fp_g4EvR3jacIT_ERKS3_PKji"),
+        "g2_ladder": ptxas_function("rlc", "_Z14grp_scalar_mulI2fpLb1EEvPjPiPKj"),
+        "program_lanes16": ptxas_function("rlc", "_Z7slp_runI2fp5lanesILi16EEEviiPj")}
+    rows["miller_loop"]["ptxas"] = {
+        "kernel": ptxas_function("pairing", "_Z18miller_loop_kernelI2fpEvPKjS2_Pjx"),
+        "program_lanes32": ptxas_function("pairing", "_Z7slp_runI2fp5lanesILi32EEEviiPj")}
+    for name in ("rlc_ladders", "point_sums", "miller_loop", "final_exp"):
         print(f"ptxas {name}: {rows[name]['ptxas']}", flush=True)
     rows = list(rows.values())
     for row in rows:
@@ -1002,16 +1023,17 @@ def rns_bls_items(n, seed, dev):
 
 
 def check_rns_bls_kernels(dev, err: dict) -> None:
-    """K9-K12's RNS instances each bit-equal to the RNS plain version on the
-    card at 4 items (seeded keys, two messages, z = 0, 1, 2^64 - 1 among the
+    """K9's and K10's RNS instances each bit-equal to the RNS plain version
+    on the card at 4 items (seeded keys, z = 0, 1, 2^64 - 1 among the
     scalars, an empty G1 segment): K9 both G1 forms, K10 on G1 segments and
-    the G2 collapse, K11, K12's batch mode (with m2) and tail."""
+    the G2 collapse. K11 and K12 (tail, batch with m2) are held at the
+    paths' shapes in phase 6 (`rns_bls_rows`)."""
     import torch
 
     from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
     from consensus_specs_tpu_torch.ops import bls12 as B
 
-    pks, hs, sigs = rns_bls_items(4, 12, dev)
+    pks, _, sigs = rns_bls_items(4, 12, dev)
     zb = zbits_from_ints([0, 1, 2**64 - 1, 987654321987654321], dev)
 
     def held(name, got, plain):
@@ -1027,13 +1049,9 @@ def check_rns_bls_kernels(dev, err: dict) -> None:
     for pts, off in ((g1j, [0, 1, 1, 4]), (g2j, [0, 4])):
         off = torch.tensor(off, device=dev)
         held("point_sums_rns", B.point_sums(pts, off), B.point_sums_plain(pts, off))
-    m = B.miller_loop(hs, pks)
-    held("miller_loop_rns", m, B.miller_loop_plain(hs, pks))
-    held("final_exp_rns", B.final_exp_batch(m[:2], m[2:]), B.final_exp_batch_plain(m[:2], m[2:]))
-    held("final_exp_rns", B.final_exp_tail(m[:-1], m[-1]), B.final_exp_tail_plain(m[:-1], m[-1]))
-    print("check K9-K12 rns instances: 4 items bit-equal to the RNS plain version (K9 both G1 "
-          "forms with z = 0, 1, 2^64-1; K10 G1 segments with an empty one, G2 collapse; K11; "
-          "K12 batch with m2, tail)", flush=True)
+    print("check K9-K10 rns instances: 4 items bit-equal to the RNS plain version (K9 both G1 "
+          "forms with z = 0, 1, 2^64-1; K10 G1 segments with an empty one, G2 collapse)",
+          flush=True)
 
 
 def rns_main_path(dev, inputs, limb: dict) -> tuple:
@@ -1345,7 +1363,19 @@ def rns_bls_rows(dev, inputs, launches, err) -> list:
                                                   "bound_by", "ms_over_bound")}
     tail["ptxas"] = {"final_exp": ptxas_function("pairing", "final_exp_kernelI5rns_w"),
                      "tree_level": ptxas_function("pairing", "f12_level_kernelI5rns_w")}
-    print(f"ptxas final_exp_rns: {tail['ptxas']}", flush=True)
+    # K9: the entry, the G1 ladder on 4 warps and its interpreter, the G2
+    # ladder on 8 warps and its interpreter; K11: the entry and the block's
+    rows[0]["ptxas"] = {
+        "kernel": ptxas_function("rlc", "_Z18rlc_ladders_kernelI5rns_wEvPKjS2_S2_PjS3_xix"),
+        "g1_ladder": ptxas_function("rlc", "_Z14grp_scalar_mulI5rns_wLb0EEvPjPiPKj"),
+        "program_warps4x2": ptxas_function("rlc", "_Z7slp_runI5rns_w5warpsILi4ELi2EEEviiPj"),
+        "g2_ladder": ptxas_function("rlc", "_Z14grp_scalar_mulI5rns_wLb1EEvPjPiPKj"),
+        "program_warps8": ptxas_function("rlc", "_Z7slp_runI5rns_w5warpsILi8ELi1EEEviiPj")}
+    rows[2]["ptxas"] = {
+        "kernel": ptxas_function("pairing", "_Z18miller_loop_kernelI5rns_wEvPKjS2_Pjx"),
+        "program_warps8": ptxas_function("pairing", "_Z7slp_runI5rns_w5warpsILi8ELi1EEEviiPj")}
+    for row in (rows[0], rows[2], tail):
+        print(f"ptxas {row['name']}: {row['ptxas']}", flush=True)
     return rows[:-1]
 
 
@@ -1988,7 +2018,7 @@ def _flush_stages(spans) -> list:
 
 
 def proof_main_path(dev, loop) -> tuple:
-    """Phase 5f, the read lane (see the module docstring): three rounds of
+    """Phase 5f, the read lane (see the module docstring): two rounds of
     the proof bench's queries through ProofService -> Scheduler ->
     MerkleWorkClass -> multiproof_batch -> K20 + K21, beside the resident
     loop, whose dirty columns invalidate the cache between rounds. Returns
@@ -2741,6 +2771,7 @@ def main(argv=None) -> int:
 
     import torch
 
+    PHASE_END_S["start"] = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0, help="the DAS lane's blobs (phase 5g)")
     args = ap.parse_args(argv)
@@ -2782,6 +2813,7 @@ def main(argv=None) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    phase_done("2 build")
 
     cfg = EpochConfig.altair_mainnet()
     rng = np.random.default_rng(0)
@@ -2936,6 +2968,7 @@ def main(argv=None) -> int:
     check_multiproof_kernels(dev, np.random.default_rng(20), err)
     check_rns_kernel(dev, err)
     check_rns_bls_kernels(dev, err)
+    phase_done("3 kernel checks")
 
     # 4. the main path at N = 2**20
     state = synthetic_epoch_state(cfg, N_MAIN, seed=0, epoch=250, device=dev)
@@ -2943,19 +2976,23 @@ def main(argv=None) -> int:
     ref = state.clone()
     refreshes = []
 
-    def check_roots(label, roots, direct=None):
-        """The cached roots against field_roots and the plain path, uncounted."""
+    def check_roots(label, roots, direct=None, plain=False):
+        """The cached roots against field_roots at every refresh, and against
+        the plain path (about 20 s of host launches a call at N = 2**20) at the
+        first refresh of each branch and where `plain` asks; uncounted."""
+        inc = loop.root_cache
+        plain = plain or inc.last_branch not in {r["branch"] for r in refreshes}
         with Aside():
             direct = direct if direct is not None else troot.field_roots(loop.state, static01)
-            plain = troot.field_roots_plain(loop.state, static01)
-        bad = [key for key in troot.DEVICE_FIELDS
-               if not (torch.equal(roots[key], direct[key]) and torch.equal(roots[key], plain[key]))]
+            ref_roots = troot.field_roots_plain(loop.state, static01) if plain else direct
+        bad = [key for key in troot.DEVICE_FIELDS if not (
+            torch.equal(roots[key], direct[key]) and torch.equal(roots[key], ref_roots[key]))]
         require(len(roots) == 14 and not bad, f"{label}: cached roots differ on {bad}")
-        inc = loop.root_cache
         refreshes.append(dict(at=label, epoch=loop.epoch, dirty=inc.last_dirty,
-                              branch=inc.last_branch))
+                              branch=inc.last_branch, plain=plain))
         print(f"refresh {label}: epoch {loop.epoch}, {inc.last_dirty} dirty rows, "
-              f"branch {inc.last_branch}; 14 roots = field_roots = plain path", flush=True)
+              f"branch {inc.last_branch}; 14 roots = field_roots"
+              + (" = plain path" if plain else ""), flush=True)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2981,7 +3018,9 @@ def main(argv=None) -> int:
     epoch_ms = ev[0].elapsed_time(ev[1]) / TIMED_EPOCHS
     roots_ms = ev[2].elapsed_time(ev[3])
     after_nine = loop.state.clone()
-    check_roots(f"after {TIMED_EPOCHS} epochs", loop.device_roots(), direct=roots)
+    # held against the plain path: the state is the plain path's after nine
+    # epochs (checked below), so these are its field roots too
+    check_roots(f"after {TIMED_EPOCHS} epochs", loop.device_roots(), direct=roots, plain=True)
     refresh_ms, refresh_wall = [], []
     for _ in range(SINGLE_EPOCHS):
         loop.step_epoch()
@@ -3049,9 +3088,6 @@ def main(argv=None) -> int:
                 f"the epoch-{epoch} sync committee differs from the plain sampler's")
     bad = [k for k, t in after_nine.items() if not torch.equal(t, getattr(ref, k))]
     require(not bad, f"state after {1 + TIMED_EPOCHS} epochs differs from the plain path on {bad}")
-    plain_roots = troot.field_roots_plain(ref, static01)
-    bad = [k for k in troot.DEVICE_FIELDS if not torch.equal(roots[k], plain_roots[k])]
-    require(len(roots) == 14 and not bad, f"field roots differ from the plain path on {bad}")
     require(rotation is not None and loop.sync_committee_updates == 1,
             "epoch 256 must rotate the sync committee once")
     require(len(loop.historical_roots) == 1, "epoch 256 must fire one historical append")
@@ -3079,7 +3115,8 @@ def main(argv=None) -> int:
         require(torch.equal(batch_root(tsha.sha256_64B_words_plain), loop.historical_roots[0]),
                 "historical batch root differs from its plain version")
     k1_path_hashes = 2 * (cfg.slots_per_historical_root - 1) + 1
-    del ref, after_one, after_nine, plain_roots
+    del ref, after_one, after_nine
+    phase_done("4 main path")
 
     # 5. the BLS path: the block flush, its attribution, the gossip flush, the shim
     t0 = time.perf_counter()
@@ -3097,6 +3134,7 @@ def main(argv=None) -> int:
     print("bls main path: " + " ".join(f"{k}={v:.4f}" for k, v in bls_out.items()
                                        if k.endswith("_ms"))
           + f" launches={ {k: bls_launches[k] for k in BLS_KERNELS} }", flush=True)
+    phase_done("5 bls")
 
     # 5b, 5c. the block's committee-key aggregation and the KZG batch at 128 blobs
     t0 = time.perf_counter()
@@ -3114,12 +3152,14 @@ def main(argv=None) -> int:
     print("msm main path: " + " ".join(f"{k}={v:.4f}" for k, v in msm_out.items()
                                        if k.endswith("_ms"))
           + f" launches={msm_parts}", flush=True)
+    phase_done("5b-c msm")
 
     # 5d. the fork-choice head at V = 2**20: the storm, a batch of 8, 8,192 blocks
     fc_out, fc_parts, fc_shapes = forkchoice_main_path(dev, err)
     print("fork choice main path: " + " ".join(f"{k}={v:.4f}" for k, v in fc_out.items()
                                                if k.endswith("_ms"))
           + f" launches={fc_parts}", flush=True)
+    phase_done("5d fork choice")
 
     # 5e. the spec's state_transition at N = 2**20 across epoch 256
     spec_out, spec_launches, k19_chunks = spec_main_path(dev)
@@ -3127,6 +3167,7 @@ def main(argv=None) -> int:
                                         if k.endswith("_ms") and not isinstance(v, (list, dict)))
           + f" stages_ms={spec_out['spec_epoch_stages_ms']} launches="
           f"{ {k: v for k, v in spec_launches.items() if v} }", flush=True)
+    phase_done("5e spec")
 
     # 5f. the read lane beside the resident loop: the proof bench's queries
     # through the proof service, the scheduler and K20 + K21
@@ -3147,6 +3188,7 @@ def main(argv=None) -> int:
           f"sched_dispatch_total{{path=device}}={proof_out['sched_dispatch_device']} "
           f"sched_degraded_total={proof_out['sched_degraded']} breaker "
           f"{proof_out['breaker']} launches={proof_launches}", flush=True)
+    phase_done("5f read lane")
 
     # 5g. the DAS lane: one slot's 64 blobs of 16,384 points extended through
     # the compiled das mainnet spec, one blob reconstructed, sampling
@@ -3161,6 +3203,7 @@ def main(argv=None) -> int:
           f"device by CUDA events; pointwise and layout {stages['pointwise_and_layout_host']:.4f} "
           f"host; busy share {das_out['das_recover_busy_share']:.4f}) busy share "
           f"{das_out['das_busy_share']:.4f} launches={das_parts}", flush=True)
+    phase_done("5g das")
 
     # 5h. phase 5's BLS flushes over the RNS field backend (K9-K12's RNS instances)
     rns_out, rns_launches, rns_parts = rns_main_path(dev, bls_in, bls_out)
@@ -3170,10 +3213,12 @@ def main(argv=None) -> int:
           + f" first flush {rns_out['block_first_host_costs']} warm block flush "
           f"{rns_out['block_host_costs']}"
           + f" launches={ {k: v for k, v in rns_launches.items() if v} }", flush=True)
+    phase_done("5h rns")
 
     # 5i. the multi-device path: world size 1 on NCCL, 4 gloo ranks on this
     # card, the (2, 2) mesh
     mesh_out, mesh_launches, mesh_in = mesh_main_path(dev, bls_in, cfg)
+    phase_done("5i mesh")
 
     # 6. kernels beside their plain versions at the main path's shapes
     m = N_MAIN // 2  # the largest K1 launch: the first level of the registry tree
@@ -3292,9 +3337,11 @@ def main(argv=None) -> int:
         row.update(route="cuda", launches=launches[row["name"]],
                    max_abs_err=err[row["name"]], bit_equal=err[row["name"]] == 0.0,
                    library_ms=None)
+    phase_done("6 rows K1-K7")
     sass_mul = sass_instructions("fp", "fp_ops_kernelILi0E")
     inverse = sass_inverse(sass_mul)
     rows += bls_rows(dev, bls_in, bls_launches, err, sass_mul)
+    phase_done("6 rows K8-K12")
     for row in rows:
         if row["name"] == "fp_ops":
             row["inverse_sass"] = inverse
@@ -3303,7 +3350,9 @@ def main(argv=None) -> int:
         if row["name"] == "point_sums":
             row[aggregate_row["shape"]] = dict(aggregate_row, launches=msm_launches["point_sums"])
     rows += new_rows
+    phase_done("6 rows K13-K14")
     rows += forkchoice_rows(fc_shapes, fc_parts, err)
+    phase_done("6 rows K15-K18")
     # K19 at the historical append's (1, 16384) and the Merkle lane's
     # buckets: K*(C-1) hashes of K1's instructions each, K*C rows read once
     k19 = {}
@@ -3335,14 +3384,18 @@ def main(argv=None) -> int:
               f"launches a call {r['launches_a_call']}", flush=True)
     with Aside():
         rows += multiproof_rows(proof_inputs, proof_launches, err, sass["sha256_64b"], bound)
+    phase_done("6 rows K19-K21")
     sass_fr_mul = sass_instructions("ntt", "fr_ops_kernelILi0E")
     with Aside():
         rows += das_rows(das_inputs, das_parts, err, sass_fr_mul, bound)
+    phase_done("6 rows K22-K23")
     with Aside():
         rows += rns_rows(dev, rns_launches, err)
     rows += rns_bls_rows(dev, bls_in, rns_launches, err)
+    phase_done("6 rows K24, K9-K12 rns")
     with Aside():
         rows += mesh_rows(dev, mesh_in, mesh_launches, err, sass_mul, bound)
+    phase_done("6 rows mesh, K25")
     card = card_line()
     print(card)
     print(json.dumps({"kernels": rows, "main_path": {
@@ -3359,7 +3412,8 @@ def main(argv=None) -> int:
         "proof_path": dict(proof_out, launches=proof_launches),
         "das_path": dict(das_out, seed=args.seed, launches=das_parts),
         "rns_path": dict(rns_out, launches=rns_parts),
-        "mesh_path": dict(mesh_out, launches=mesh_launches)}))
+        "mesh_path": dict(mesh_out, launches=mesh_launches),
+        "phase_end_s": {k: v for k, v in PHASE_END_S.items() if k != "start"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,9 @@
 // G1 (over Fp) and G2 (on the twist, over Fp2) in Jacobian coordinates, one
 // template for both and for either base field (one thread a point over the
-// limb field, one warp over RNS): BLS12-381 and its twist both have a = 0,
-// and b never enters the add or double formulas.
+// limb field, one warp over RNS; csrc/g1_lanes.cuh runs them on four lanes,
+// and csrc/bls_group.cuh's programs K9's double and add on a group):
+// BLS12-381 and its twist both have a = 0, and b never enters the add or
+// double formulas.
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py `g1_double` :641, `g1_add`
 // :661, `g2_double`/`g2_add` :892-956, `g1_scalar_mul_batch` :782 and
@@ -69,13 +71,6 @@ template <typename F>
 BLS_INLINE void fstore(uint32_t *p, const fp2_t<F> &x) {
     fp_store(p, x.c0);
     fp_store(p + F::WORDS, x.c1);
-}
-
-// threads a block of one-item units: 64 threads over the limb field, four
-// warps over RNS (K9, K11)
-template <typename B>
-__host__ __device__ constexpr int item_threads() {
-    return B::LANES == 1 ? 64 : 4 * B::LANES;
 }
 
 template <typename F>

@@ -47,32 +47,18 @@
 // products and 18 outputs): 3,456 bytes (limb), 18,432 (RNS).
 #pragma once
 #include "tower.cuh"
+#include "unit_group.cuh"
 
-// limb: the 32 lanes of a warp, group threadIdx.x / 32 of the block
-struct lane_group {
-    static constexpr int SIZE = 32;
-    static BLS_INLINE int rank() { return threadIdx.x & 31; }
-    static BLS_INLINE int index() { return threadIdx.x >> 5; }
-    static BLS_INLINE void sync() { __syncwarp(); }
-};
-
-// RNS: the 8 warps of a block
-struct warp_group {
-    static constexpr int SIZE = 8;
-    static BLS_INLINE int rank() { return threadIdx.x >> 5; }
-    static BLS_INLINE int index() { return 0; }
-    static BLS_INLINE void sync() { __syncthreads(); }
-};
-
+// K12's group by field (csrc/unit_group.cuh)
 template <typename F>
 struct fe_group;
 template <>
 struct fe_group<fp> {
-    using type = lane_group;
+    using type = lanes<32>;  // the 32 lanes of a warp
 };
 template <>
 struct fe_group<rns_w> {
-    using type = warp_group;
+    using type = warps<8, 1>;  // the 8 warps of a block
 };
 
 // threads of one group, and int32 words of one group's exchange

@@ -1,15 +1,29 @@
-// The optimal-ate pairing on the card, templates over the base field: one
-// thread a Miller loop over the limb field (csrc/fp.cuh), one warp over RNS
-// (csrc/fp_rns.cuh, `_rns` entry points), and a group of them a final
-// exponentiation. Each launch takes its geometry from the field's lanes an
-// element; a unit below is a thread (limb) or a warp (RNS).
+// The optimal-ate pairing on the card, templates over the base field: the
+// limb field (csrc/fp.cuh, `fp`) and the RNS field (csrc/fp_rns.cuh,
+// `rns_w`, `_rns` entry points). A unit below is a thread (limb) or a warp
+// (RNS); each kernel runs an item on a group of units.
 //
 // K11 miller_loop: f_{|x|,Q}(P), conjugated (x < 0), per (Q, P) pair: Q
 // affine on the twist (B, 2, 2, 12), P affine (B, 2, 12) -> (B, 12, 12).
 // Replaces consensus_specs_tpu/ops/bls12_jax.py:514 `miller_loop_batch` with
 // `_dbl_step` :442 and `_add_step` :478: T in Jacobian coordinates on the
 // twist, JAX's formulas and line scaling (2YZ^3·xi for a double, HZ·xi for
-// an add, :22-27), so the output is JAX's, bit for bit.
+// an add, :22-27), so the output is JAX's, bit for bit. A pairing runs on a
+// group (csrc/bls_group.cuh): the 32 lanes of a warp under limb (four
+// pairings a block), the 8 warps of a block under RNS. Its state (f, T, Q,
+// P) lives in the group's slots; each of the 63 iterations runs the program
+// `miller_dbl` (the doubling step with its line, f squared and times the
+// line: 114 distinct Fp products, whose independent ones go out a unit
+// each) and, where the bit of |x| is set, `miller_add` (83), as
+// ops/bls12_programs.py schedules them from the one-unit formulas. One unit
+// ran the loop's 7,700 products in one line (17.1 ms at B = 257 on an H100,
+// limb; 11.2 under RNS); the groups run a doubling iteration in 7 product
+// rounds (limb) or 15 (RNS) and about as many rounds of sums. The group
+// sizes were timed on the card (PERF.md): 32 lanes ran B = 257 in 1.92 ms
+// and B = 1,025 in 2.59, 16 lanes (eight pairings a block) 2.76 and 2.76,
+// so the limb group is a warp; under RNS 8 warps ran 3.68 and 12.57 ms, 4
+// warps 4.54 and 12.91, so it is 8. At B = 1,025 the RNS instance is bound
+// by its products' instruction count, as one warp a pairing was.
 //
 // K12 final_exp, the final exponentiation (:611, JAX's hard-part chain, so
 // the output is the cube of the reduced pairing) and `f12_is_one` (:628),
@@ -33,137 +47,102 @@
 // the same canonical value, and RNS residues follow the order. An entry
 // call of K12 or K25 counts one launch whatever its grids.
 //
-// Bound: operations. A Miller loop is about 7,700 Fp products in one unit
-// and a final exponentiation about 9,300 on one group; a block flush runs
-// 257 Miller loops (257 of the card's 16,896 lanes under the limb field)
-// and one exponentiation, so both are latency-bound far from the operation
-// rate. The group shortens the exponentiation's line about 8x (limb) and
-// 5x (RNS), and the tail's tree is 9 levels of one group's Fp12 product
-// (PERF.md). The bit loops stay rolled; the tower functions are
-// called, not inlined. Under RNS an Fp12 is 24 registers a lane.
+// Bound: operations. A Miller loop is about 7,700 Fp products (7,597
+// distinct: a product by the line's zero coefficient is one product) and a
+// final exponentiation about 9,300; a block flush runs 257 Miller loops and
+// one exponentiation, so both are latency-bound far from the operation rate.
+// The groups shorten the lines: the exponentiation's about 8x (limb) and 5x
+// (RNS), and the tail's tree is 9 levels of one group's Fp12 product
+// (PERF.md). The bit loops stay rolled; the tower functions are called, not
+// inlined.
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
+#include "bls_group.cuh"
 #include "f12_group.cuh"
 #include "stack.cuh"
 
-// One Miller doubling of T with its line (l0, l3, l5) at P = (xp, yp):
-// l0 = 2YZ^3·xi·yp, l3 = 3X^3 - 2Y^2, l5 = -3X^2 Z^2·xp
-template <typename F>
-__device__ __noinline__ void dbl_step(jac<fp2_t<F>> &T, fp2_t<F> &l0, fp2_t<F> &l3, fp2_t<F> &l5,
-                                      const F &xp, const F &yp) {
-    fp2_t<F> A, B, Zsq, E, D, YZ, Zcu, EX, EZsq, Fq, C, X3, Y3, t;
-    f2_sqr(A, T.x);
-    f2_sqr(B, T.y);
-    f2_sqr(Zsq, T.z);
-    f2_add(E, A, A);
-    f2_add(E, E, A);
-    f2_mul(D, T.x, B);
-    f2_mul(YZ, T.y, T.z);
-    f2_mul(Zcu, T.z, Zsq);
-    f2_mul(EX, E, T.x);
-    f2_mul(EZsq, E, Zsq);
-    f2_add(D, D, D);
-    f2_add(D, D, D);
-    f2_sqr(Fq, E);
-    f2_sqr(C, B);
-    f2_add(t, D, D);
-    f2_sub(X3, Fq, t);
-    f2_add(C, C, C);
-    f2_add(C, C, C);
-    f2_add(C, C, C);
-    f2_sub(t, D, X3);
-    f2_mul(Y3, E, t);
-    f2_sub(Y3, Y3, C);
-    f2_mul(t, T.y, Zcu);  // YZ^3
-    f2_add(t, t, t);
-    f2_mul_xi(t, t);
-    f2_mul_fp(l0, t, yp);
-    f2_mul_fp(t, EZsq, xp);
-    f2_neg(l5, t);
-    f2_add(t, B, B);
-    f2_sub(l3, EX, t);
-    f2_add(T.z, YZ, YZ);
-    T.x = X3;
-    T.y = Y3;
-}
+// K11's group by field: a warp (limb, four groups a block) or the block's
+// warps (RNS)
+template <typename B>
+struct miller_group;
+template <>
+struct miller_group<fp> {
+    using type = lanes<MILLER_LIMB_G>;
+    static constexpr int PER_BLOCK = 128 / MILLER_LIMB_G, SLOTS = MILLER_LIMB_SLOTS;
+};
+template <>
+struct miller_group<rns_w> {
+    using type = warps<MILLER_RNS_G, 1>;
+    static constexpr int PER_BLOCK = 1, SLOTS = MILLER_RNS_SLOTS;
+};
 
-// Mixed addition T + Q with its line: H = xq Z^2 - X, r = yq Z^3 - Y,
-// l0 = HZ·xi·yp, l3 = r·xq - HZ·yq, l5 = -r·xp
-template <typename F>
-__device__ __noinline__ void add_step(jac<fp2_t<F>> &T, fp2_t<F> &l0, fp2_t<F> &l3, fp2_t<F> &l5,
-                                      const fp2_t<F> &xq, const fp2_t<F> &yq, const F &xp,
-                                      const F &yp) {
-    fp2_t<F> Zsq, U, Zcu, S, H, R, Hsq, Rsq, Hcu, V, HZ, X3, Y3, t, u;
-    f2_sqr(Zsq, T.z);
-    f2_mul(U, xq, Zsq);
-    f2_mul(Zcu, T.z, Zsq);
-    f2_mul(S, yq, Zcu);
-    f2_sub(H, U, T.x);
-    f2_sub(R, S, T.y);
-    f2_sqr(Hsq, H);
-    f2_sqr(Rsq, R);
-    f2_mul(Hcu, H, Hsq);
-    f2_mul(V, T.x, Hsq);
-    f2_mul(HZ, H, T.z);
-    f2_sub(X3, Rsq, Hcu);
-    f2_add(t, V, V);
-    f2_sub(X3, X3, t);
-    f2_sub(t, V, X3);
-    f2_mul(Y3, R, t);
-    f2_mul(t, T.y, Hcu);
-    f2_sub(Y3, Y3, t);
-    f2_mul(t, R, xq);
-    f2_mul(u, HZ, yq);
-    f2_sub(l3, t, u);
-    f2_mul_xi(t, HZ);
-    f2_mul_fp(l0, t, yp);
-    f2_mul_fp(t, R, xp);
-    f2_neg(l5, t);
-    T.x = X3;
-    T.y = Y3;
-    T.z = HZ;
-}
-
-template <typename F>
-__device__ __noinline__ void miller(fp12_t<F> &f, const fp2_t<F> &xq, const fp2_t<F> &yq,
-                                    const F &xp, const F &yp) {
-    jac<fp2_t<F>> T;
-    T.x = xq;
-    T.y = yq;
-    f2_set_one(T.z);
-    fp2_t<F> l0, l3, l5;
-    f12_set_one(f);
-#pragma unroll 1
-    for (int i = 62; i >= 0; --i) {  // the bits of |x| below its top one
-        dbl_step(T, l0, l3, l5, xp, yp);
-        f12_sqr(f, f);
-        f12_mul_sparse035(f, f, l0, l3, l5);
-        if ((X_ABS >> i) & 1) {
-            add_step(T, l0, l3, l5, xq, yq, xp, yp);
-            f12_mul_sparse035(f, f, l0, l3, l5);
-        }
-    }
-    f12_conj(f, f);
+template <typename B>
+__host__ __device__ constexpr int miller_threads() {
+    return miller_group<B>::PER_BLOCK * miller_group<B>::type::SIZE * B::LANES;
 }
 
 template <typename B>
-__global__ void __launch_bounds__(item_threads<B>())
+BLS_INLINE void miller_dbl(uint32_t *vals);
+template <>
+BLS_INLINE void miller_dbl<fp>(uint32_t *vals) {
+    slp_run<fp, miller_group<fp>::type>(PROG_MILLER_DBL_LIMB, vals);
+}
+template <>
+BLS_INLINE void miller_dbl<rns_w>(uint32_t *vals) {
+    slp_run<rns_w, miller_group<rns_w>::type>(PROG_MILLER_DBL_RNS, vals);
+}
+template <typename B>
+BLS_INLINE void miller_add(uint32_t *vals);
+template <>
+BLS_INLINE void miller_add<fp>(uint32_t *vals) {
+    slp_run<fp, miller_group<fp>::type>(PROG_MILLER_ADD_LIMB, vals);
+}
+template <>
+BLS_INLINE void miller_add<rns_w>(uint32_t *vals) {
+    slp_run<rns_w, miller_group<rns_w>::type>(PROG_MILLER_ADD_RNS, vals);
+}
+
+// Pair i on group i: the slots start as f = 1, T = (xq, yq, 1), Q, P (the
+// one-unit loop's start), then the 63 bits of |x| below its top one, then
+// the conjugate of f goes out (row 2k + c of coefficient k's component c).
+template <typename B>
+__global__ void __launch_bounds__(miller_threads<B>())
     miller_loop_kernel(const uint32_t *__restrict__ q, const uint32_t *__restrict__ p,
                        uint32_t *out, long long n) {
+    using MG = miller_group<B>;
+    using Grp = typename MG::type;
+    constexpr int W = B::WORDS, S = MG::SLOTS;
+    __shared__ __align__(16) uint32_t slots[MG::PER_BLOCK * S * W];
     field_prologue((B *)nullptr);
-    constexpr int W = B::WORDS;
-    long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B::LANES;
-    if (i >= n) return;
-    fp2_t<B> xq, yq;
-    B xp, yp;
-    fload(xq, q + (2 * i) * 2 * W);
-    fload(yq, q + (2 * i + 1) * 2 * W);
-    fload(xp, p + (2 * i) * W);
-    fload(yp, p + (2 * i + 1) * W);
-    fp12_t<B> f;
-    miller(f, xq, yq, xp, yp);
-    f12_store(out + 12 * W * i, f);
+    const long long i = (long long)blockIdx.x * MG::PER_BLOCK + Grp::index();
+    if (i >= n) return;  // a whole group (under RNS the block)
+    uint32_t *vals = slots + Grp::index() * S * W;
+    for (int s = Grp::rank(); s < MILLER_FIXED; s += Grp::SIZE) {
+        B v;
+        if (s >= MILLER_Q && s < MILLER_Q + 4)
+            fp_load(v, q + (4 * i + s - MILLER_Q) * W);
+        else if (s >= MILLER_P)
+            fp_load(v, p + (2 * i + s - MILLER_P) * W);
+        else if (s >= MILLER_T && s < MILLER_T + 4)
+            fp_load(v, q + (4 * i + s - MILLER_T) * W);
+        else if (s == MILLER_F || s == MILLER_T + 4)
+            fp_set_one(v);
+        else
+            fp_set_zero(v);
+        fp_store(vals + s * W, v);
+    }
+    Grp::sync();
+#pragma unroll 1
+    for (int b = 62; b >= 0; --b) {
+        miller_dbl<B>(vals);
+        if ((X_ABS >> b) & 1) miller_add<B>(vals);
+    }
+    for (int s = Grp::rank(); s < 12; s += Grp::SIZE) {
+        B v;
+        fp_load(v, vals + (MILLER_F + s) * W);
+        if ((s >> 1) & 1) fp_neg(v, v);
+        fp_store(out + (12 * i + s) * W, v);
+    }
 }
 
 // threads a block of K12 and K25: four 32-lane groups (limb), one group of
@@ -254,10 +233,10 @@ static int miller_entry(const void *q, const void *p, void *out, long long n, vo
     int e = ensure_stack();
     if (e) return e;
     if (n > 0) {
-        const int threads = item_threads<B>(), per_block = threads / B::LANES;
-        miller_loop_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), threads, 0,
-                                (cudaStream_t)stream>>>((const uint32_t *)q, (const uint32_t *)p,
-                                                        (uint32_t *)out, n);
+        const int per_block = miller_group<B>::PER_BLOCK;
+        miller_loop_kernel<B><<<(unsigned)((n + per_block - 1) / per_block), miller_threads<B>(),
+                                0, (cudaStream_t)stream>>>((const uint32_t *)q, (const uint32_t *)p,
+                                                           (uint32_t *)out, n);
     }
     return (int)cudaGetLastError();
 }

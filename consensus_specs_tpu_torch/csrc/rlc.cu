@@ -1,16 +1,25 @@
 // The point work of the randomized batch check, templates over the base
-// field: one thread a point over the limb field (csrc/fp.cuh), one warp a
-// point over RNS (csrc/fp_rns.cuh); each launch takes its geometry from the
-// field's lanes an element.
+// field: the limb field (csrc/fp.cuh) and the RNS field (csrc/fp_rns.cuh,
+// `_rns` entry points).
 //
 // K9 rlc_ladders: per item [z]·pk over G1 and [z]·sig over G2 with 2-bit
-// windows (64-bit z, 32 windows), items [0, n) on G1 and [n, 2n) on G2 of
-// one launch (under RNS they split on warp boundaries); the G1 result is
-// made affine by the same thread or warp (ungrouped path) or kept Jacobian
-// for K10 (grouped path). Replaces consensus_specs_tpu/ops/bls12_jax.py:782
-// `g1_scalar_mul_batch`, :957 `g2_scalar_mul_batch`, :868
-// `_g1_jacobian_to_affine_batch`, and the ladders of :1157
-// `rlc_randomize_g1` and :1164 `rlc_collapse_g2`.
+// windows (64-bit z, 32 windows: curve.cuh's jac_scalar_mul), G1 and G2
+// items of one launch in blocks of their own; the G1 result is made affine
+// (ungrouped path) or kept Jacobian for K10 (grouped path). Replaces
+// consensus_specs_tpu/ops/bls12_jax.py:782 `g1_scalar_mul_batch`, :957
+// `g2_scalar_mul_batch`, :868 `_g1_jacobian_to_affine_batch`, and the
+// ladders of :1157 `rlc_randomize_g1` and :1164 `rlc_collapse_g2`. A ladder
+// runs on a group: limb G1 on four lanes (csrc/g1_lanes.cuh: a double in 3
+// products' time, a complete add in 5, the affine step's divstep inverse on
+// every lane alike), limb G2 on G2_LIMB_G lanes, RNS G1 on 4 warps and RNS
+// G2 on 8 (csrc/bls_group.cuh: the double's and the add's Fp products go
+// out a unit each, ops/bls12_programs.py `jac_dbl`, `jac_add`; the complete
+// add's case selects are curve.cuh's, on tests every unit reads alike). One
+// unit a ladder ran about 2,800 Fp products in one line (5.1 ms at N = 256
+// on an H100, limb; 4.1 under RNS). The limb G2 group was timed on the card
+// (PERF.md): 16 lanes ran the 256 G2 ladders in 1.23 ms, 8 lanes in 1.40,
+// so it is 16. The RNS G1 ladder ends in a Fermat inverse on one warp (the
+// residues follow that chain), about 0.8 of its 2.1 ms at N = 256.
 //
 // K10 point_sums: one block a segment [off[d], off[d+1]) of Jacobian points
 // (segments in order, sorted by the caller): each of the block's 64 units
@@ -37,54 +46,250 @@
 // version's (ops/bls12.py `segment_sums_limbs`), which their residues need.
 //
 // Bound: operations (Fp products). A ladder is about 95 point operations of
-// 7-16 products each in one thread (warp); the card holds 16,896 lanes and
-// the batches here are 256-2048 items, so both kernels are latency-bound far
-// from the card's operation rate (chip_smoke.py reports the ratio); a
-// segment's sum is a line of adds, which the lane group shortens.
+// 7-45 products each; the card holds 16,896 lanes and the batches here are
+// 256-2048 items, so both kernels are latency-bound far from the card's
+// operation rate (chip_smoke.py reports the ratio); the groups shorten the
+// lines.
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
-#include "curve.cuh"
+#include "bls_group.cuh"
 #include "g1_lanes.cuh"
 #include "stack.cuh"
 
+// K9's geometry by field: limb blocks of 128 threads, a G1 ladder on four
+// lanes (32 a block) or a G2 ladder on a G2_LIMB_G-lane group; RNS blocks of
+// 256 threads (8 warps), two G1 ladders on 4 warps each or one G2 ladder on
+// all 8. A block holds one kind, so no warp holds both.
 template <typename B>
-__global__ void __launch_bounds__(item_threads<B>())
+struct ladder_geom;
+template <>
+struct ladder_geom<fp> {
+    static constexpr int THREADS = 128, G1_PER_BLOCK = THREADS / fp_g4::LANES,
+                         G2_PER_BLOCK = THREADS / G2_LIMB_G;
+    static constexpr int WORDS = G2_PER_BLOCK * G2_LIMB_SLOTS * 12;
+    using G2 = lanes<G2_LIMB_G>;
+};
+template <>
+struct ladder_geom<rns_w> {
+    static constexpr int THREADS = 256, G1_PER_BLOCK = 8 / G1_RNS_G, G2_PER_BLOCK = 1;
+    static constexpr int G1_WORDS = G1_PER_BLOCK * G1_RNS_SLOTS * RNS_N,
+                         G2_WORDS = G2_RNS_SLOTS * RNS_N;
+    static constexpr int WORDS = G1_WORDS > G2_WORDS ? G1_WORDS : G2_WORDS;
+    using G1 = warps<G1_RNS_G, G1_PER_BLOCK>;
+    using G2 = warps<G2_RNS_G, 1>;
+    static_assert(G2_RNS_G == 8, "an RNS G2 ladder takes the block's 8 warps");
+};
+
+// the slots of a ladder (csrc/bls_programs.cuh): the accumulator A, the add's
+// operand B and result C, H and R, the table's [1]P, [2]P, [3]P from T; NC
+// Fp a coordinate, NP a point
+template <bool G2>
+struct curve_slots {
+    static constexpr int NC = G2 ? 2 : 1, NP = 3 * NC;
+    static constexpr int A = G2 ? CURVE2_A : CURVE1_A, B = G2 ? CURVE2_B : CURVE1_B,
+                         C = G2 ? CURVE2_C : CURVE1_C, H = G2 ? CURVE2_H : CURVE1_H,
+                         T = G2 ? CURVE2_T : CURVE1_T;
+};
+
+// the double (A = 2A) and the add's products (C, H, R from A and B) of a
+// field and curve, on its group
+template <typename B, bool G2>
+struct curve_progs;
+template <>
+struct curve_progs<fp, true> {
+    using Grp = ladder_geom<fp>::G2;
+    static BLS_INLINE void dbl(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_DBL_LIMB, v); }
+    static BLS_INLINE void add(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_ADD_LIMB, v); }
+};
+template <>
+struct curve_progs<rns_w, true> {
+    using Grp = ladder_geom<rns_w>::G2;
+    static BLS_INLINE void dbl(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_DBL_RNS, v); }
+    static BLS_INLINE void add(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_ADD_RNS, v); }
+};
+template <>
+struct curve_progs<rns_w, false> {
+    using Grp = ladder_geom<rns_w>::G1;
+    static BLS_INLINE void dbl(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G1_DBL_RNS, v); }
+    static BLS_INLINE void add(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G1_ADD_RNS, v); }
+};
+
+// A = A + [d]P (d = 0: infinity), curve.cuh's complete jac_add on the group
+// with its case selects, every unit reading the same tests: A at infinity
+// gives [d]P, [d]P at infinity (z2) gives A; else the add's products, and
+// H = 0 doubles A where R = 0 and gives (X3, Y3, 0) where not
+template <typename B, bool G2>
+BLS_INLINE void grp_add_table(uint32_t *vals, int *flags, int d, bool z2) {
+    using S = curve_slots<G2>;
+    using Pr = curve_progs<B, G2>;
+    using Grp = typename Pr::Grp;
+    const unsigned all = (1u << S::NC) - 1u;
+    const bool z1 = grp_zero_mask<Grp>((B *)nullptr, vals, S::A + 2 * S::NC, S::NC, flags) == all;
+    if (d == 0) {
+        if (z1) grp_copy<B, Grp>(vals, S::A, -1, S::NP);
+        return;
+    }
+    const int t = S::T + (d - 1) * S::NP;
+    if (z1) {
+        grp_copy<B, Grp>(vals, S::A, t, S::NP);
+        return;
+    }
+    if (z2) return;
+    grp_copy<B, Grp>(vals, S::B, t, S::NP);
+    Pr::add(vals);
+    const unsigned hr = grp_zero_mask<Grp>((B *)nullptr, vals, S::H, 2 * S::NC, flags);
+    if ((hr & all) != all) {
+        grp_copy<B, Grp>(vals, S::A, S::C, S::NP);
+    } else if ((hr >> S::NC) == all) {
+        Pr::dbl(vals);  // equal points
+    } else {
+        grp_copy<B, Grp>(vals, S::A, S::C, 2 * S::NC);  // opposite points: infinity
+        grp_copy<B, Grp>(vals, S::A + 2 * S::NC, -1, S::NC);
+    }
+}
+
+// A = [z]P, P in the table's slots [1]P with Z = 1 (the caller's): curve.cuh's
+// jac_scalar_mul over 32 two-bit windows of the 64-bit z on the group
+template <typename B, bool G2>
+BLS_NOINLINE void grp_scalar_mul(uint32_t *vals, int *flags, const uint32_t *z) {
+    using S = curve_slots<G2>;
+    using Pr = curve_progs<B, G2>;
+    using Grp = typename Pr::Grp;
+    grp_copy<B, Grp>(vals, S::A, S::T, S::NP);  // [2]P
+    Pr::dbl(vals);
+    grp_copy<B, Grp>(vals, S::T + S::NP, S::A, S::NP);
+    grp_add_table<B, G2>(vals, flags, 1, false);  // [3]P = [2]P + P (P's Z = 1)
+    grp_copy<B, Grp>(vals, S::T + 2 * S::NP, S::A, S::NP);
+    // bit d: [d]P is infinity ([0]P is, [1]P is not: its Z is 1)
+    const unsigned all = (1u << S::NC) - 1u;
+    unsigned zt = 1u;
+    for (int d = 2; d <= 3; ++d) {
+        const int z_slot = S::T + (d - 1) * S::NP + 2 * S::NC;
+        zt |= (unsigned)(grp_zero_mask<Grp>((B *)nullptr, vals, z_slot, S::NC, flags) == all) << d;
+    }
+    const int top = (z[1] >> 30) & 3;
+    grp_copy<B, Grp>(vals, S::A, top ? S::T + (top - 1) * S::NP : -1, S::NP);
+#pragma unroll 1
+    for (int w = 30; w >= 0; --w) {
+        const int d = (z[w >> 4] >> (2 * (w & 15))) & 3;
+        Pr::dbl(vals);
+        Pr::dbl(vals);
+        grp_add_table<B, G2>(vals, flags, d, (zt >> d) & 1);
+    }
+}
+
+// slot 0 and the table's [1]P = (x, y, 1), x and y from src (affine);
+// syncs
+template <typename B, typename Grp, bool G2>
+BLS_INLINE void ladder_init(uint32_t *vals, const uint32_t *src) {
+    using S = curve_slots<G2>;
+    constexpr int W = B::WORDS;
+    for (int s = Grp::rank(); s <= S::NP; s += Grp::SIZE) {
+        B v;
+        if (s < 2 * S::NC)
+            fp_load(v, src + s * W);
+        else if (s == 2 * S::NC)
+            fp_set_one(v);
+        else
+            fp_set_zero(v);
+        fp_store(vals + (s == S::NP ? 0 : S::T + s) * W, v);
+    }
+    Grp::sync();
+}
+
+// item t's G1 ladder: limb on four lanes (csrc/g1_lanes.cuh)
+BLS_INLINE void g1_ladder(fp *, const uint32_t *p, const uint32_t *z, uint32_t *g1, long long n,
+                          int affine, long long block, uint32_t *, int *) {
+    constexpr int W = 12;
+    const long long t = block * ladder_geom<fp>::G1_PER_BLOCK + threadIdx.x / fp_g4::LANES;
+    if (t >= n) return;
+    jac<fp_g4> pt, r;
+    fload(pt.x, p + (2 * t) * W);
+    fload(pt.y, p + (2 * t + 1) * W);
+    fset_one(pt.z);
+    jac_scalar_mul(r, pt, z + 2 * t, 32);
+    if (affine) {
+        fp_g4 x, y;
+        jac_to_affine(x, y, r);
+        fstore(g1 + (2 * t) * W, x);
+        fstore(g1 + (2 * t + 1) * W, y);
+    } else {
+        fstore(g1 + (3 * t) * W, r.x);
+        fstore(g1 + (3 * t + 1) * W, r.y);
+        fstore(g1 + (3 * t + 2) * W, r.z);
+    }
+}
+
+// item t's G1 ladder under RNS: a group of 4 warps; the affine step on its
+// first warp (one Fermat inverse)
+BLS_INLINE void g1_ladder(rns_w *, const uint32_t *p, const uint32_t *z, uint32_t *g1,
+                          long long n, int affine, long long block, uint32_t *slots,
+                          int *flags) {
+    using L = ladder_geom<rns_w>;
+    using Grp = L::G1;
+    using S = curve_slots<false>;
+    constexpr int W = RNS_N;
+    const long long t = block * L::G1_PER_BLOCK + Grp::index();
+    if (t >= n) return;  // a whole group
+    uint32_t *vals = slots + Grp::index() * G1_RNS_SLOTS * W;
+    flags += 8 * Grp::index();
+    ladder_init<rns_w, Grp, false>(vals, p + 2 * t * W);
+    grp_scalar_mul<rns_w, false>(vals, flags, z + 2 * t);
+    if (affine) {
+        if (Grp::rank() == 0) {
+            jac<rns_w> r;
+            rns_w x, y;
+            for (int k = 0; k < 3; ++k) fp_load(k == 0 ? r.x : k == 1 ? r.y : r.z,
+                                                vals + (S::A + k) * W);
+            jac_to_affine(x, y, r);
+            fp_store(g1 + (2 * t) * W, x);
+            fp_store(g1 + (2 * t + 1) * W, y);
+        }
+    } else {
+        for (int k = Grp::rank(); k < 3; k += Grp::SIZE) {
+            rns_w v;
+            fp_load(v, vals + (S::A + k) * W);
+            fp_store(g1 + (3 * t + k) * W, v);
+        }
+    }
+}
+
+// item t's G2 ladder on its group (Jacobian out)
+template <typename B>
+BLS_INLINE void g2_ladder(const uint32_t *q, const uint32_t *z, uint32_t *g2, long long n,
+                          long long block, uint32_t *slots, int *flags) {
+    using L = ladder_geom<B>;
+    using Grp = typename L::G2;
+    using S = curve_slots<true>;
+    constexpr int W = B::WORDS;
+    const long long t = block * L::G2_PER_BLOCK + Grp::index();
+    if (t >= n) return;  // a whole group
+    uint32_t *vals = slots + Grp::index() * (L::WORDS / L::G2_PER_BLOCK);
+    flags += 8 * Grp::index();
+    ladder_init<B, Grp, true>(vals, q + 4 * t * W);
+    grp_scalar_mul<B, true>(vals, flags, z + 2 * t);
+    for (int k = Grp::rank(); k < S::NP; k += Grp::SIZE) {
+        B v;
+        fp_load(v, vals + (S::A + k) * W);
+        fp_store(g2 + (6 * t + k) * W, v);
+    }
+}
+
+// K9: blocks [0, g1_blocks) run G1 ladders, the rest G2 ladders
+template <typename B>
+__global__ void __launch_bounds__(ladder_geom<B>::THREADS)
     rlc_ladders_kernel(const uint32_t *__restrict__ p, const uint32_t *__restrict__ q,
                        const uint32_t *__restrict__ z, uint32_t *g1, uint32_t *g2, long long n,
-                       int has_g1, int has_g2, int affine) {
+                       int affine, long long g1_blocks) {
+    __shared__ __align__(16) uint32_t slots[ladder_geom<B>::WORDS];
+    __shared__ int flags[8 * 8];  // the RNS zero tests', 8 a group
     field_prologue((B *)nullptr);
-    constexpr int W = B::WORDS;
-    long long t = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / B::LANES;
-    long long n1 = has_g1 ? n : 0;
-    if (t < n1) {
-        jac<B> pt, r;
-        fload(pt.x, p + (2 * t) * W);
-        fload(pt.y, p + (2 * t + 1) * W);
-        fset_one(pt.z);
-        jac_scalar_mul(r, pt, z + 2 * t, 32);
-        if (affine) {
-            B x, y;
-            jac_to_affine(x, y, r);
-            fstore(g1 + (2 * t) * W, x);
-            fstore(g1 + (2 * t + 1) * W, y);
-        } else {
-            fstore(g1 + (3 * t) * W, r.x);
-            fstore(g1 + (3 * t + 1) * W, r.y);
-            fstore(g1 + (3 * t + 2) * W, r.z);
-        }
-    } else if (has_g2 && t < n1 + n) {
-        long long i = t - n1;
-        jac<fp2_t<B>> pt, r;
-        fload(pt.x, q + (2 * i) * 2 * W);
-        fload(pt.y, q + (2 * i + 1) * 2 * W);
-        fset_one(pt.z);
-        jac_scalar_mul(r, pt, z + 2 * i, 32);
-        fstore(g2 + (3 * i) * 2 * W, r.x);
-        fstore(g2 + (3 * i + 1) * 2 * W, r.y);
-        fstore(g2 + (3 * i + 2) * 2 * W, r.z);
-    }
+    if (blockIdx.x < g1_blocks)
+        g1_ladder((B *)nullptr, p, z, g1, n, affine, blockIdx.x, slots, flags);
+    else
+        g2_ladder<B>(q, z, g2, n, blockIdx.x - g1_blocks, slots, flags);
 }
 
 constexpr int SUM_UNITS = 64;  // K10's units over the limb field
@@ -125,14 +330,13 @@ static int ladders(const void *p, const void *q, const void *z, void *g1, void *
                    long long has_g1, long long has_g2, long long affine, void *stream) {
     int e = ensure_stack();
     if (e) return e;
-    long long items = n * ((has_g1 ? 1 : 0) + (has_g2 ? 1 : 0));
-    if (items > 0) {
-        const int threads = item_threads<B>(), per_block = threads / B::LANES;
-        unsigned blocks = (unsigned)((items + per_block - 1) / per_block);
-        rlc_ladders_kernel<B><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+    using L = ladder_geom<B>;
+    const long long b1 = has_g1 ? (n + L::G1_PER_BLOCK - 1) / L::G1_PER_BLOCK : 0;
+    const long long b2 = has_g2 ? (n + L::G2_PER_BLOCK - 1) / L::G2_PER_BLOCK : 0;
+    if (n > 0 && b1 + b2 > 0)
+        rlc_ladders_kernel<B><<<(unsigned)(b1 + b2), L::THREADS, 0, (cudaStream_t)stream>>>(
             (const uint32_t *)p, (const uint32_t *)q, (const uint32_t *)z, (uint32_t *)g1,
-            (uint32_t *)g2, n, (int)has_g1, (int)has_g2, (int)affine);
-    }
+            (uint32_t *)g2, n, (int)affine, b1);
     return (int)cudaGetLastError();
 }
 

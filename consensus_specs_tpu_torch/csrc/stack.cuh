@@ -1,8 +1,9 @@
 // The per-thread stack of the BLS kernels (K9-K12, K25). A thread holds
 // Fp12 values and the frames of the called (__noinline__) tower functions:
 // K12's limb instance needs 6,464 bytes (ptxas, cumulative stack size) and
-// K9's limb ladder 5,184, below this limit, which tests/test_torch_cuda.py
-// pins at 10,160 bytes or more. The RNS instances hold two words a lane an
+// K9's limb kernel 2,240 (its G1 ladder on four lanes; K9's and K11's group
+// programs keep their values in shared memory, K11 144), below this limit,
+// which tests/test_torch_cuda.py pins at 10,160 bytes or more. The RNS instances hold two words a lane an
 // Fp and need far less, but K12's is still above the CUDA runtime's default
 // of 1 KiB, so their entries call this too. The CUDA driver reserves the
 // limit for every thread the card can hold at once (2,048 an SM, 132 SMs),

@@ -7,13 +7,14 @@
 // (row 2k + c; 144 words over the limb field, 768 over RNS).
 //
 // Replaces consensus_specs_tpu/ops/bls12_jax.py:82-436 (`f2_*`, `f2_inv`
-// :158, `f12_sqr` :250, `f12_mul_sparse035` :312, `_f6_mul`/`_f6_inv`
-// :324-350, `f12_inv` :364, `f12_conj`). The TPU program stacks independent
-// products into one wide field call; here each thread (each warp, under
-// rns_w) runs the formulas in sequence. The final exponentiation's Fp12
-// product (:241), squaring, Frobenius maps (:423-440) and cyclotomic
-// squaring (:539) run on a group of units instead: csrc/f12_group.cuh, with
-// the one-unit formulas.
+// :158, `_f6_mul`/`_f6_inv` :324-350, `f12_inv` :364, `f12_conj`). The TPU
+// program stacks independent products into one wide field call; here each
+// thread (each warp, under rns_w) runs the formulas in sequence. The final
+// exponentiation's Fp12 product (:241), squaring, Frobenius maps (:423-440)
+// and cyclotomic squaring (:539) run on a group of units instead
+// (csrc/f12_group.cuh), and so does the Miller loop's squaring (:250) and
+// line product (:312) (csrc/bls_group.cuh's programs), each with the
+// one-unit formulas.
 // Both instances run these same formulas. Limb values are canonical, so the
 // Karatsuba forms give JAX's words exactly. RNS values are redundant: a
 // result's residues depend on the integers fed to each Montgomery product,
@@ -151,15 +152,6 @@ BLS_NOINLINE void f2_mul_xi(fp2_t<F> &r, const fp2_t<F> &x) {
 }
 
 template <typename F>
-BLS_NOINLINE void f2_mul_fp(fp2_t<F> &r, const fp2_t<F> &x, const F &s) {
-    F a, b;
-    fp_mul(a, x.c0, s);
-    fp_mul(b, x.c1, s);
-    r.c0 = a;
-    r.c1 = b;
-}
-
-template <typename F>
 BLS_NOINLINE void f2_inv(fp2_t<F> &r, const fp2_t<F> &x) {
     F n, t;
     fp_sqr(n, x.c0);
@@ -172,11 +164,6 @@ BLS_NOINLINE void f2_inv(fp2_t<F> &r, const fp2_t<F> &x) {
 }
 
 // --- Fp6 ---------------------------------------------------------------------
-
-template <typename F>
-BLS_NOINLINE void f6_add(fp6_t<F> &r, const fp6_t<F> &x, const fp6_t<F> &y) {
-    for (int k = 0; k < 3; ++k) f2_add(r.c[k], x.c[k], y.c[k]);
-}
 
 template <typename F>
 BLS_NOINLINE void f6_sub(fp6_t<F> &r, const fp6_t<F> &x, const fp6_t<F> &y) {
@@ -262,15 +249,6 @@ BLS_NOINLINE void f6_inv(fp6_t<F> &r, const fp6_t<F> &x) {
 
 // --- Fp12 --------------------------------------------------------------------
 
-template <typename F>
-BLS_INLINE void f12_set_one(fp12_t<F> &r) {
-    for (int k = 0; k < 3; ++k) {
-        f2_set_zero(r.a.c[k]);
-        f2_set_zero(r.b.c[k]);
-    }
-    f2_set_one(r.a.c[0]);
-}
-
 // the Fp2 coefficient of w^k
 template <typename F>
 BLS_INLINE fp2_t<F> &f12_coeff(fp12_t<F> &x, int k) {
@@ -315,40 +293,6 @@ template <typename F>
 BLS_NOINLINE void f12_conj(fp12_t<F> &r, const fp12_t<F> &x) {
     r.a = x.a;
     f6_neg(r.b, x.b);
-}
-
-// (a + b w)^2 = (a + b)(a + v b) - ab - v ab + 2ab w
-template <typename F>
-BLS_NOINLINE void f12_sqr(fp12_t<F> &r, const fp12_t<F> &x) {
-    fp6_t<F> t, s, u;
-    f6_mul(t, x.a, x.b);
-    f6_add(s, x.a, x.b);
-    f6_mul_by_v(u, x.b);
-    f6_add(u, x.a, u);
-    f6_mul(s, s, u);
-    f6_mul_by_v(u, t);
-    f6_add(u, t, u);
-    f6_sub(r.a, s, u);
-    f6_add(r.b, t, t);
-}
-
-// f·(l0 + l3 w^3 + l5 w^5): the line is (l0, 0, 0) + (0, l3, l5) w
-template <typename F>
-BLS_NOINLINE void f12_mul_sparse035(fp12_t<F> &r, const fp12_t<F> &f, const fp2_t<F> &l0,
-                                    const fp2_t<F> &l3, const fp2_t<F> &l5) {
-    fp6_t<F> t0, t1, t2, L;
-    for (int k = 0; k < 3; ++k) f2_mul(t0.c[k], f.a.c[k], l0);
-    f2_set_zero(L.c[0]);
-    L.c[1] = l3;
-    L.c[2] = l5;
-    f6_mul(t1, f.b, L);
-    L.c[0] = l0;
-    f6_add(t2, f.a, f.b);
-    f6_mul(t2, t2, L);
-    f6_add(L, t0, t1);
-    f6_sub(r.b, t2, L);
-    f6_mul_by_v(t1, t1);
-    f6_add(r.a, t0, t1);
 }
 
 // (a + b w)^-1 = (a - b w)/(a^2 - v b^2)

@@ -31,10 +31,13 @@ is not free is where the JAX package's values depend on a representative:
 
 Kernels (csrc/rlc.cu, csrc/pairing.cu, csrc/msm.cu; the towers in
 csrc/tower.cuh and the curves in csrc/curve.cuh are templates over the base
-field: the limb field of csrc/fp.cuh, one thread an item, or the RNS field
-of csrc/fp_rns.cuh, one warp an item, for K9-K12; K12's exponentiation runs
-on a group of such units, csrc/f12_group.cuh, and K10's limb G1 sums on
-four-lane groups, csrc/g1_lanes.cuh):
+field: the limb field of csrc/fp.cuh, a unit a thread, or the RNS field of
+csrc/fp_rns.cuh, a unit a warp, for K9-K12). K9's ladders and K11's Miller
+loop run an item on a group of units, their steps' Fp products a unit each
+(csrc/bls_group.cuh, the programs of ops/bls12_programs.py; K9's limb G1
+ladder on csrc/g1_lanes.cuh's four lanes), K12's exponentiation too
+(csrc/f12_group.cuh), K10's limb G1 sums on four-lane groups and its other
+instances a unit a point:
 - K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
   (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
   in the same thread where asked (:868);

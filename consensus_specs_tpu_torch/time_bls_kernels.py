@@ -1,5 +1,5 @@
-"""Time K8's inverse, K10, K12 and K25 in any checkout of the port, so that
-two checkouts can be timed in turns on one card.
+"""Time K8's inverse, K9, K10, K11, K12 and K25 in any checkout of the port,
+so that two checkouts can be timed in turns on one card.
 
     python3 consensus_specs_tpu_torch/time_bls_kernels.py [--root CHECKOUT] [--out FILE]
 
@@ -7,9 +7,11 @@ Imports `consensus_specs_tpu_torch` from CHECKOUT (default: the checkout
 this file is in), builds its kernels there, and times with CUDA events, at
 the main path's shapes: K8 op 5 (the inverse) at M = 256; K10's committee
 sum (`g1_aggregate`, one 512-key segment), its G2 collapse at N = 256 and
-its grouped G1 sums (64 segments of 16); K12's tail at B = 257 and its
-batch mode at 256 items with m2, in the limb field and over RNS residues;
-K25 at B = 256 and 1,024. The inputs are seeded and made with the
+its grouped G1 sums (64 segments of 16); K9 at N = 256 (G1 affine and G2,
+the block flush's launch), G1 alone and G2 alone, and at the gossip's 1,024
+(G1 Jacobian and G2); K11 at B = 257 and 1,025; K12's tail at B = 257 and
+its batch mode at 256 items with m2; K9, K11 and K12 in the limb field and
+over RNS residues; K25 at B = 256 and 1,024. The inputs are seeded and made with the
 checkout's own wrappers (keys sk_0 + j as `crypto/msm_synthetic` makes a
 committee, G2 points from K9's ladders over 8 hashed messages, Miller values
 from K11 over 8 pairs, tiled), so two checkouts see the same inputs; every
@@ -50,7 +52,16 @@ def main(argv=None) -> int:
     from consensus_specs_tpu_torch.ops import fp
 
     pkg = Path(B.__file__).resolve().parents[1]
-    build.build_all(("fp", "rlc", "pairing"))
+    reports = build.build_all(("fp", "rlc", "pairing"))
+    # registers, stack and spills of K9's and K11's kernels, ladders and
+    # program interpreters, an instance a line
+    ptxas, keys = [], ("ladders_kernel", "miller_loop_kernel", "scalar_mul", "slp_run")
+    for text in reports.values():
+        lines = text.splitlines()
+        ptxas += [" | ".join(x.strip() for x in lines[i:i + 3]) for i, line in enumerate(lines)
+                  if "Function properties for" in line and any(k in line for k in keys)]
+    for line in ptxas:
+        print("ptxas", line, flush=True)
     dev = torch.device("cuda")
     F1 = oracle.FP_FIELD
     rng = np.random.default_rng(0)
@@ -77,7 +88,31 @@ def main(argv=None) -> int:
         [int.from_bytes(rng.bytes(48), "little") % fp.P for _ in range(12 * 1024)])).reshape(
         1024, 12, 12).to(dev)
 
+    sigs = q8[torch.arange(1024) % 8].to(dev)
+    pk1024 = torch.cat([p_aff, p_aff]).to(dev)
+    mq = {b: q8[torch.arange(b) % 8].to(dev) for b in (257, 1025)}
+    mp = {b: pk1024[torch.arange(b) % 512].contiguous() for b in (257, 1025)}
+    rk, rs = (rns_from_words(t.cpu()).to(dev) for t in (pk1024, sigs))
+    rmq = {b: rns_from_words(t.cpu()).to(dev) for b, t in mq.items()}
+    rmp = {b: rns_from_words(t.cpu()).to(dev) for b, t in mp.items()}
+
+    def ladders(k, s, n, affine=True):
+        return lambda: B.rlc_ladders(None if k is None else k[:n], None if s is None else s[:n],
+                                     z[:n], affine)
+
     rows = {
+        "rlc_ladders_N256": (ladders(pk1024, sigs, 256), 3),
+        "rlc_ladders_g1_N256": (ladders(pk1024, None, 256), 3),
+        "rlc_ladders_g2_N256": (ladders(None, sigs, 256), 3),
+        "rlc_ladders_gossip_N1024": (ladders(pk1024, sigs, 1024, False), 3),
+        "rlc_ladders_rns_N256": (ladders(rk, rs, 256), 3),
+        "rlc_ladders_rns_g1_N256": (ladders(rk, None, 256), 3),
+        "rlc_ladders_rns_g2_N256": (ladders(None, rs, 256), 3),
+        "rlc_ladders_rns_gossip_N1024": (ladders(rk, rs, 1024, False), 3),
+        "miller_loop_B257": (lambda: B.miller_loop(mq[257], mp[257]), 3),
+        "miller_loop_B1025": (lambda: B.miller_loop(mq[1025], mp[1025]), 3),
+        "miller_loop_rns_B257": (lambda: B.miller_loop(rmq[257], rmp[257]), 3),
+        "miller_loop_rns_B1025": (lambda: B.miller_loop(rmq[1025], rmp[1025]), 3),
         "fp_ops_inv_M256": (lambda: fp.fp_ops(fp.OP_INV, inv_in), 20),
         "point_sums_g1_aggregate_512": (lambda: B.g1_aggregate(committee), 20),
         "point_sums_g2_N256": (lambda: B.point_sums(g2j, torch.tensor([0, 256], device=dev)),
@@ -92,11 +127,11 @@ def main(argv=None) -> int:
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
-    out = {"card": card, "package": str(pkg), "rows": {}}
+    out = {"card": card, "package": str(pkg), "ptxas": ptxas, "rows": {}}
     for name, (fn, reps) in rows.items():
         res = fn()
         torch.cuda.synchronize()
-        res = res if isinstance(res, tuple) else (res,)
+        res = tuple(t for t in (res if isinstance(res, tuple) else (res,)) if t is not None)
         digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in res)).hexdigest()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()

@@ -350,16 +350,42 @@ def test_to_mont_words_on_card(cuda):
     assert tfp.words_to_ints(got) == [tfp.to_mont(v) for v in vals]
 
 
-@pytest.mark.parametrize("affine", [True, False])
-def test_rlc_ladders_kernel_matches_plain(cuda, affine):
-    p, _, s = _bls_items(6, 6, 1)
-    zb = bls_torch.zbits_from_ints([0, 1, 2, 2**64 - 1, 2**32, 987654321987654321])
-    with _counted("rlc_ladders"):
-        got = tbls.rlc_ladders(p.to(cuda), s.to(cuda), zb.to(cuda), affine)
+# z with 0, 1, all digits 3, a zero top window (and digits 3 below it), a
+# top window 3 over zeros, then seeded
+_LADDER_Z = [0, 1, 2, 2**64 - 1, 2**32, 987654321987654321, (1 << 62) - 1, 3 << 62]
+
+
+def _ladder_inputs(n, field, seed):
+    """n (pk, sig) items (8 distinct, tiled) and zbits, on the CPU."""
+    p, _, s = (_rns_bls_items if field == "rns" else _bls_items)(8, 8, seed)
+    idx = torch.arange(n) % 8
+    rng = np.random.default_rng(n)
+    zs = (_LADDER_Z + [int(v) for v in rng.integers(1, 2**63, max(n - 8, 0), dtype=np.int64)])[:n]
+    return p[idx].contiguous(), s[idx].contiguous(), bls_torch.zbits_from_ints(zs)
+
+
+def _check_ladders(cuda, field, n, affine, seed):
+    """K9 at n items against its plain version on the card's tensors (G1
+    affine or Jacobian, and G2, in one launch), and the G1-only and G2-only
+    launches give the same points."""
+    p, s, zb = (t.to(cuda) for t in _ladder_inputs(n, field, seed))
+    name = "rlc_ladders_rns" if field == "rns" else "rlc_ladders"
+    with _counted(name):
+        got = tbls.rlc_ladders(p, s, zb, affine)
     for g, w in zip(got, tbls.rlc_ladders_plain(p, s, zb, affine)):
-        assert torch.equal(g.cpu(), w)
-    g1_only = tbls.rlc_ladders(p.to(cuda), None, zb.to(cuda), affine)
+        assert torch.equal(g, w)
+    g1_only = tbls.rlc_ladders(p, None, zb, affine)
     assert g1_only[1] is None and torch.equal(g1_only[0], got[0])
+    g2_only = tbls.rlc_ladders(None, s, zb, affine)
+    assert g2_only[0] is None and torch.equal(g2_only[1], got[1])
+
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("n", [1, 3, 33, 256, 1024])
+def test_rlc_ladders_kernel_matches_plain(cuda, affine, n):
+    """K9's limb instance (G1 on four lanes, G2 on lane groups) across
+    warp and block boundaries."""
+    _check_ladders(cuda, "limb", n, affine, 1)
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -435,6 +461,29 @@ def test_final_exp_kernel_at_batch_and_tail_sizes(cuda, field, b):
     want = (tbls.final_exp_tail_plain(m1[:-1], m1[-1]) if b == 257 else
             tbls.final_exp_batch_plain(m1, m2 if b == 3 else None))
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _miller_inputs(b, field, seed):
+    """b (Q, P) pairs (8 distinct, tiled), the last two (for b >= 3) the
+    affine (0, 0) operands of test_affine_infinity_operands: P = (0, 0) and
+    Q = (0, 0)."""
+    p, q, _ = (_rns_bls_items if field == "rns" else _bls_items)(8, 8, seed)
+    idx = torch.arange(b) % 8
+    p, q = p[idx].contiguous(), q[idx].contiguous()
+    if b >= 3:
+        p[-2] = 0
+        q[-1] = 0
+    return p, q
+
+
+@pytest.mark.parametrize("b", [1, 3, 65, 257, 1025])
+def test_miller_loop_kernel_at_the_paths_sizes(cuda, b):
+    """K11's limb instance (a warp a pairing, four a block) bit-equal to the
+    plain version on the card's tensors at 1, 3, 65, 257 and 1,025 pairs."""
+    p, q = (t.to(cuda) for t in _miller_inputs(b, "limb", 3))
+    with _counted("miller_loop"):
+        m = tbls.miller_loop(q, p)
+    assert torch.equal(m, tbls.miller_loop_plain(q, p))
 
 
 def test_miller_and_final_exp_kernels_match_plain(cuda):
@@ -1081,19 +1130,13 @@ def _rns_bls_items(n, messages, seed):
 
 
 @pytest.mark.parametrize("affine", [True, False])
-@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("n", [1, 5, 3, 33, 256, 1024])
 def test_rns_ladders_kernel_matches_plain(cuda, affine, n):
-    """K9's RNS instance bit-equal to the RNS plain version: an odd batch
-    and one that does not fill a block's four warps, z with 0, 1 and
-    2^64 - 1; the G1-only launch gives the same G1 points."""
-    p, _, s = _rns_bls_items(n, n, 31)
-    zb = bls_torch.zbits_from_ints([0, 1, 2**64 - 1, 2**32, 987654321987654321][:n])
-    with _counted("rlc_ladders_rns"):
-        got = tbls.rlc_ladders(p.to(cuda), s.to(cuda), zb.to(cuda), affine)
-    for g, w in zip(got, tbls.rlc_ladders_plain(p, s, zb, affine)):
-        assert torch.equal(g.cpu(), w)
-    g1_only = tbls.rlc_ladders(p.to(cuda), None, zb.to(cuda), affine)
-    assert g1_only[1] is None and torch.equal(g1_only[0], got[0])
+    """K9's RNS instance (G1 on 4 warps, two a block; G2 on a block's 8
+    warps) bit-equal to the RNS plain version across block boundaries, z
+    with 0, 1, all digits 3 and a zero top window; the G1-only and G2-only
+    launches give the same points."""
+    _check_ladders(cuda, "rns", n, affine, 31)
 
 
 @pytest.mark.parametrize("g2", [False, True])
@@ -1109,6 +1152,17 @@ def test_rns_point_sums_kernel_matches_plain(cuda, g2):
     with _counted("point_sums_rns"):
         got = tbls.point_sums(pts.to(cuda), off.to(cuda))
     assert torch.equal(got.cpu(), tbls.point_sums_plain(pts, off))
+
+
+@pytest.mark.parametrize("b", [1, 3, 65, 257, 1025])
+def test_rns_miller_loop_kernel_at_the_paths_sizes(cuda, b):
+    """K11's RNS instance (a block of 8 warps a pairing) bit-equal to the
+    RNS plain version on the card's tensors, the (0, 0) operands among the
+    pairs."""
+    p, q = (t.to(cuda) for t in _miller_inputs(b, "rns", 33))
+    with _counted("miller_loop_rns"):
+        m = tbls.miller_loop(q, p)
+    assert torch.equal(m, tbls.miller_loop_plain(q, p))
 
 
 def test_rns_miller_and_final_exp_kernels_match_plain(cuda):
