@@ -199,8 +199,9 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    and 65 and its batch at 256); K13 at (128, 64) and (512, 255), K14 and
    K10's aggregate over a 512-key committee, each bit-equal to its plain
    version there, their least time from the cost functions' point
-   operations (K14: its chain's, the r-ladder's beside them, and
-   ptxas's registers, stack and spills); K15-K18 at the three fork-choice parts' shapes, their least
+   operations (K13: its ratio to the bound at both shapes and ptxas's
+   registers, stack and spills of its three kernels; K14: its chain's, the
+   r-ladder's beside them, and ptxas's); K15-K18 at the three fork-choice parts' shapes, their least
    time from the bytes read and written once or the operations the data
    needs, and K16 beside `index_add_`; K19 at the historical append's
    (1, 16384) (the epoch's own vectors) and the Merkle lane's (64, 1024)
@@ -223,7 +224,7 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    collapse, K11 at B = 257, K12's tail at 257 and its batch at 256 with
    m2), bit-equal to the RNS plain version there, their least time that
    version's Fp products x 3,716 lane instructions; ptxas's registers, stack
-   and spills of K10's and K12's instances and of K12's tree level, and K8
+   and spills of K10's instances (the G2 collapse's in both fields) and K12's and of K12's tree level, and K8
    op 5's SASS (the divstep inverse: its round loop x 37 rounds, the rest,
    one product) against Fermat's 608 products, and of K9's and K11's entries,
    ladders and program interpreters, an instance each; K25 at the B phase 5i gave it
@@ -872,8 +873,10 @@ def bls_rows(dev, inputs, launches, err, sass_mul) -> list:
             rows[name][label] = dict(ms=ms, plain_ms=plain_ms, fp_muls=muls,
                                      **bound(muls, nbytes))
     # registers, stack and spills of the instances this path runs
-    rows["point_sums"]["ptxas"] = {"g2": ptxas_function("rlc", "point_sums_kernelI2fpLb1"),
-                                   "g1_four_lanes": ptxas_function("rlc", "point_sums_kernelI5fp_g4")}
+    rows["point_sums"]["ptxas"] = {
+        "g2_lanes16": ptxas_function("rlc", "g2_sums_kernelI2fp"),
+        "g2_rns_warps8": ptxas_function("rlc", "g2_sums_kernelI5rns_w"),
+        "g1_four_lanes": ptxas_function("rlc", "point_sums_kernelI5fp_g4")}
     rows["final_exp"]["ptxas"] = {"final_exp": ptxas_function("pairing", "final_exp_kernelI2fp"),
                                   "tree_level": ptxas_function("pairing", "f12_level_kernelI2fp")}
     # K9: the entry (its frame holds both halves' points, passed to the
@@ -1495,9 +1498,9 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
     import torch
 
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
-    from consensus_specs_tpu_torch.crypto import kzg_batch
     from consensus_specs_tpu_torch.ops import bls12 as B
     from consensus_specs_tpu_torch.ops import fp
+    from consensus_specs_tpu_torch.time_bls_kernels import kzg_msm_args
 
     lim = B.to_limbs(B._jacobian_words([oracle.G1_GEN_AFF, agg_in["aggregates"][0]], 0, "cpu"))
     m0 = fp.plain_muls
@@ -1505,21 +1508,6 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
     per_double = fp.plain_muls - m0
     B.g1_add(lim[:1], lim[1:])
     per_add = fp.plain_muls - m0 - per_double
-    rng = np.random.default_rng(6)
-    samples = kzg_in["samples"]
-    proofs = [kzg_batch._aff(it[3]) for it in samples]
-    side64 = (proofs, [int(v) for v in rng.integers(1, 2**63, len(proofs), dtype=np.int64)])
-    folded = ([kzg_batch._neg(p) for p in proofs]
-              + [kzg_batch._neg(kzg_batch._aff(it[0])) for it in samples]
-              + [kzg_batch._aff(g) for g in kzg_in["setup"].g1[:len(samples[0][2])]])
-    side255 = (folded, [int.from_bytes(rng.bytes(32), "little") % oracle.R for _ in folded])
-
-    def msm_args(points, scalars, nbits):
-        b = B._msm_pow2_pad(len(points))
-        pad = b - len(points)
-        return (B._jacobian_words(points + [oracle.G1_GEN_AFF] * pad, 0, dev),
-                B.scalar_words(scalars + [0] * pad, nbits).to(dev), nbits)
-
     keys = B._jacobian_words([agg_in["keys"][pk] for pk in agg_in["calls"][0][0]], 0, dev)
 
     def ops_bound(doubles, adds, muls=0):
@@ -1528,8 +1516,7 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
                     bound_ms=1e3 * muls * sass_mul / LANE_INSTR_PER_S, bound_by="operations")
 
     shapes = []
-    for label, (pts, sc) in (("n=128 nbits=64", side64), ("n=512 nbits=255", side255)):
-        a = msm_args(pts, sc, 64 if "64" in label else 255)
+    for label, a in kzg_msm_args(kzg_in, dev).items():
         c = B.g1_msm_data_op_counts(a[1], a[2])
         shapes.append(("g1_msm", label, lambda a=a: B.g1_msm(*a), lambda a=a: B.g1_msm_plain(*a),
                        ops_bound(c["doubles"], c["adds"])))
@@ -1554,24 +1541,30 @@ def msm_rows(dev, agg_in, kzg_in, launches, err, sass_mul) -> tuple:
                     "at the main path's shape")
             ms = time_ms(kernel, 3, warmup=1)
             rows.setdefault(name, []).append(dict(shape=label, ms=ms, plain_ms=plain_ms,
-                                                  **bound))
+                                                  ms_over_bound=ms / bound["bound_ms"], **bound))
             print(f"kernel {name} ({label}): ms={ms:.5f} bound_ms={bound['bound_ms']:.6f} "
                   f"(operations: {bound['point_ops']} point ops, {bound['fp_muls']} Fp "
                   f"products) plain_ms={plain_ms:.3f}", flush=True)
         k14 = rows["g1_subgroup"][0]
         k14["ptxas"] = ptxas_function("msm", "g1_subgroup_kernelI5fp_g4")
+        k13 = rows["g1_msm"][0]
+        k13["ptxas"] = {part: ptxas_function("msm", f"msm_{part}_kernel")
+                        for part in ("tables", "window_sums", "tail")}
+        print(f"ptxas g1_msm: {k13['ptxas']}", flush=True)
         print(f"kernel g1_subgroup (n={keys.shape[0]}): bound_ms={k14['bound_ms']:.6f} (the "
               f"chain's {k14['fp_muls']} Fp products) ladder_bound_ms="
               f"{k14['ladder_bound_ms']:.6f}; ptxas {k14['ptxas']}", flush=True)
     out = []
-    for name, src, replaces in (
-            ("g1_msm", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1291"),
-            ("g1_subgroup", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1347")):
+    for name, src, replaces, why in (
+            ("g1_msm", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1291",
+             "no PyTorch call sums curve points"),
+            ("g1_subgroup", "msm.cu", "consensus_specs_tpu/ops/bls12_jax.py:1347",
+             "no PyTorch call multiplies curve points")):
         first, *more = rows[name]
         out.append(dict(name=name, route="cuda", source=f"consensus_specs_tpu_torch/csrc/{src}",
                         replaces=replaces, launches=launches[name], max_abs_err=err[name],
-                        bit_equal=err[name] == 0.0, library_ms=None,
-                        ms_over_bound=first["ms"] / first["bound_ms"], **first,
+                        bit_equal=err[name] == 0.0, library_ms=None, library_null_reason=why,
+                        **first,
                         **{r["shape"]: r for r in more}))
     agg = rows["point_sums"][0]
     agg["ptxas"] = ptxas_function("rlc", "point_sums_kernelI5fp_g4")

@@ -26,16 +26,22 @@ files, no network).
   check (K14): keys, the order-3 points (0, +-2), random points of E(Fp)
   (cofactor components), their cofactor parts [r]·Q alone, and keys plus
   (0, 2).
+- `g2_sum_cases`: G2 Jacobian points for K10's G2 collapse, placed so that
+  P + P and P + (-P) meet in a unit's fold, at the tree's first level and at
+  its last (across blocks on the card), beside random points and infinity.
 """
 from __future__ import annotations
 
 from hashlib import sha256
 
 import numpy as np
+import torch
 
+from ..ops import fp
 from ..ops.fr_host import root_of_unity
 from . import bls12_381 as oracle
 from . import bls_torch, kzg
+from .hash_to_curve import hash_to_curve_g2
 from .bls_synthetic import COMMITTEE_SIZE, MAX_ATTESTATIONS, SYNC_COMMITTEE_SIZE
 
 KZG_BLOBS = 128  # data blobs a block carries (the sharding mainnet preset)
@@ -60,6 +66,62 @@ def _affine_all(points) -> list:
         inv = inv * z % P
         zi2 = zi * zi % P
         out[i] = (x * zi2 % P, y * zi2 * zi % P)
+    return out
+
+
+def g2_sum_cases(n: int, units: int, seed: int) -> dict:
+    """{case: (n, 3, 2, 12) Jacobian Montgomery words} of n G2 points summed
+    by `units` units (`ops.bls12.g2_sum_units(n)`; unit u folds the entries
+    u, u + units, ..., then unit u takes unit u + half at each tree level).
+    Points are [k]·H(m) in random Jacobian scalings, so a point and its copy
+    differ in their words:
+    - "random": n points, every 7th at infinity;
+    - "fold": P, P at entries 0 and units (unit 0's fold doubles), Q, -Q at
+      1 and 1 + units (unit 1's cancels), the rest infinity;
+    - "tree": R, R at units 0 and units/2, S, -S at 1 and 1 + units/2 (they
+      meet at the tree's first level), the rest infinity;
+    - "last_double" and "last_cancel": T and T, or T and -T, at units 0 and
+      1, which meet at the tree's last level, the rest infinity;
+    - "infinity": n points at infinity.
+    A case that does not fit n and units is left out."""
+    F2 = oracle.FP2_FIELD
+    P = oracle.P
+    rng = np.random.default_rng(seed)
+    hs = [oracle.pt_from_affine(F2, hash_to_curve_g2(b"g2 sum cases %d" % i)) for i in range(4)]
+
+    def point(i):
+        return oracle.pt_to_affine(F2, oracle.pt_mul(F2, hs[i % 4], int(rng.integers(1, 2**30))))
+
+    def jac(aff, neg=False):
+        lam = tuple(int.from_bytes(rng.bytes(48), "little") % P or 1 for _ in range(2))
+        lam2 = oracle.f2_mul(lam, lam)
+        y = aff[1] if not neg else ((-aff[1][0]) % P, (-aff[1][1]) % P)
+        return (oracle.f2_mul(aff[0], lam2), oracle.f2_mul(y, oracle.f2_mul(lam2, lam)), lam)
+
+    inf = ((0, 0), (0, 0), (0, 0))
+
+    def words(pts):
+        flat = [c for pt in pts for coord in pt for c in coord]
+        return torch.from_numpy(fp.ints_to_mont_words(flat).reshape(n, 3, 2, fp.NWORDS))
+
+    def placed(pairs):
+        pts = [inf] * n
+        for at, aff, neg in pairs:
+            pts[at] = jac(aff, neg)
+        return words(pts)
+
+    out = {"random": words([inf if i % 7 == 3 else jac(point(i)) for i in range(n)]),
+           "infinity": words([inf] * n)}
+    a, b = point(11), point(12)
+    if n > units + 1:
+        out["fold"] = placed([(0, a, False), (units, a, False), (1, b, False),
+                              (1 + units, b, True)])
+    if units >= 4:
+        h = units // 2
+        out["tree"] = placed([(0, a, False), (h, a, False), (1, b, False), (1 + h, b, True)])
+    if units >= 2:
+        out["last_double"] = placed([(0, a, False), (1, a, False)])
+        out["last_cancel"] = placed([(0, a, False), (1, a, True)])
     return out
 
 

@@ -1,6 +1,7 @@
 // The four-lane G1 group: one G1 point on four lanes of a warp, for K14's
-// subgroup check chain (csrc/curve.cuh `jac_in_g1`, csrc/msm.cu) and K10's
-// limb G1 sums (csrc/rlc.cu: block_tree_sum's adds, then jac_to_affine).
+// subgroup check chain (csrc/curve.cuh `jac_in_g1`, csrc/msm.cu), K13's
+// tables, window sums and tail (csrc/msm.cu) and K10's limb G1 sums
+// (csrc/rlc.cu: block_tree_sum's adds, then jac_to_affine).
 //
 // The chain is 136 point operations in one dependency line, so one thread a
 // key runs at one thread's latency: 1,051 Fp products in sequence, each a

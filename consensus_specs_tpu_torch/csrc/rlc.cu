@@ -21,29 +21,30 @@
 // so it is 16. The RNS G1 ladder ends in a Fermat inverse on one warp (the
 // residues follow that chain), about 0.8 of its 2.1 ms at N = 256.
 //
-// K10 point_sums: one block a segment [off[d], off[d+1]) of Jacobian points
-// (segments in order, sorted by the caller): each of the block's 64 units
-// (16 warps under RNS) adds a strided share, the shares meet in a tree in
-// shared memory (curve.cuh's block_tree_sum, which K13's window sums share),
-// and the sum is made affine. An empty segment sums to infinity and comes
-// out (0, 0) (inv(0) = 0); `pairing_check_rlc` fails such a batch from the
-// segment counts. G2 with one segment is the bilinearity collapse (:1014 +
-// :1043), G1 with D segments the grouped path's sum by message (:1172,
-// :1195) and, over one segment, the committee-key sum
-// (`_g1_aggregate_program` :1339); two template instances a field.
-//
-// The limb G1 instance runs a unit on four lanes (F = fp_g4,
-// csrc/g1_lanes.cuh: a complete add's 16 products in 5 steps), 256 threads
-// a block: a committee of 512 keys is 64 groups x 8 points, then a 6-level
-// tree, 13 adds of 5 steps in one line, and the affine step's inverse is
-// the divstep one (csrc/fp.cuh), about 25-35 products' time where Fermat's
-// chain is 608. One thread a unit over 256 threads (9 adds of 16
-// products) was slower at 512 keys (PERF.md). The limb result does not
-// depend on the order of the adds (an affine sum has one canonical
-// encoding), so the plain version keeps its 64-unit order, which is also
-// the 64 groups'. The G2 instance stays one thread
-// a unit and the RNS instances one warp a unit: the RNS order is the plain
-// version's (ops/bls12.py `segment_sums_limbs`), which their residues need.
+// K10 point_sums: the affine sum of each segment [off[d], off[d+1]) of
+// Jacobian points (segments in order, sorted by the caller). An empty
+// segment sums to infinity and comes out (0, 0) (inv(0) = 0);
+// `pairing_check_rlc` fails such a batch from the segment counts. G2 with
+// one segment is the bilinearity collapse (:1014 + :1043), G1 with D
+// segments the grouped path's sum by message (:1172, :1195) and, over one
+// segment, the committee-key sum (`_g1_aggregate_program` :1339).
+// - G1: one block a segment; each of its 64 units (16 warps under RNS)
+//   adds a strided share, the shares meet in a tree in shared memory
+//   (curve.cuh's block_tree_sum, which K13's window sums share), and the
+//   sum is made affine. The limb unit is four lanes (F = fp_g4,
+//   csrc/g1_lanes.cuh: a complete add's 16 products in 5 steps), 256
+//   threads a block: a committee of 512 keys is 64 groups x 8 points, then a
+//   6-level tree, and the divstep inverse (csrc/fp.cuh). The limb result
+//   does not depend on the order of the adds (an affine sum has one
+//   canonical encoding); the RNS order is the plain version's
+//   (ops/bls12.py `segment_sums_limbs`), which its residues need.
+// - G2 (`g2_sums_kernel`, both fields): `g2_sum_units(N)` units a segment,
+//   each one of K9's G2 groups (its programs and case selects), over as
+//   many blocks as they fill; the partials meet in shared memory, then
+//   across blocks by tickets, and the last block makes the sum affine with
+//   the affine step's products spread over its group. One block of 64
+//   one-thread units (16 one-warp units under RNS) took 0.88 ms limb and
+//   2.63 ms RNS at N = 256 on an H100 (PERF.md): one SM worked.
 //
 // Bound: operations (Fp products). A ladder is about 95 point operations of
 // 7-45 products each; the card holds 16,896 lanes and the batches here are
@@ -97,17 +98,22 @@ struct curve_slots {
 // field and curve, on its group
 template <typename B, bool G2>
 struct curve_progs;
+// (G2 also the affine step's two programs, K10's)
 template <>
 struct curve_progs<fp, true> {
     using Grp = ladder_geom<fp>::G2;
     static BLS_INLINE void dbl(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_DBL_LIMB, v); }
     static BLS_INLINE void add(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_ADD_LIMB, v); }
+    static BLS_INLINE void aff_norm(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_AFF_NORM_LIMB, v); }
+    static BLS_INLINE void aff_out(uint32_t *v) { slp_run<fp, Grp>(PROG_G2_AFF_OUT_LIMB, v); }
 };
 template <>
 struct curve_progs<rns_w, true> {
     using Grp = ladder_geom<rns_w>::G2;
     static BLS_INLINE void dbl(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_DBL_RNS, v); }
     static BLS_INLINE void add(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_ADD_RNS, v); }
+    static BLS_INLINE void aff_norm(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_AFF_NORM_RNS, v); }
+    static BLS_INLINE void aff_out(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G2_AFF_OUT_RNS, v); }
 };
 template <>
 struct curve_progs<rns_w, false> {
@@ -116,15 +122,34 @@ struct curve_progs<rns_w, false> {
     static BLS_INLINE void add(uint32_t *v) { slp_run<rns_w, Grp>(PROG_G1_ADD_RNS, v); }
 };
 
-// A = A + [d]P (d = 0: infinity), curve.cuh's complete jac_add on the group
-// with its case selects, every unit reading the same tests: A at infinity
-// gives [d]P, [d]P at infinity (z2) gives A; else the add's products, and
-// H = 0 doubles A where R = 0 and gives (X3, Y3, 0) where not
+// A = A + B by the add's products where neither is infinity, then
+// curve.cuh's jac_add's case selects on H and R: H = 0 doubles A where R = 0
+// and gives (X3, Y3, 0) where not
 template <typename B, bool G2>
-BLS_INLINE void grp_add_table(uint32_t *vals, int *flags, int d, bool z2) {
+BLS_INLINE void grp_add_core(uint32_t *vals, int *flags) {
     using S = curve_slots<G2>;
     using Pr = curve_progs<B, G2>;
     using Grp = typename Pr::Grp;
+    const unsigned all = (1u << S::NC) - 1u;
+    Pr::add(vals);
+    const unsigned hr = grp_zero_mask<Grp>((B *)nullptr, vals, S::H, 2 * S::NC, flags);
+    if ((hr & all) != all) {
+        grp_copy<B, Grp>(vals, S::A, S::C, S::NP);
+    } else if ((hr >> S::NC) == all) {
+        Pr::dbl(vals);  // equal points
+    } else {
+        grp_copy<B, Grp>(vals, S::A, S::C, 2 * S::NC);  // opposite points: infinity
+        grp_copy<B, Grp>(vals, S::A + 2 * S::NC, -1, S::NC);
+    }
+}
+
+// A = A + [d]P (d = 0: infinity), curve.cuh's complete jac_add on the group
+// with its case selects, every unit reading the same tests: A at infinity
+// gives [d]P, [d]P at infinity (z2) gives A; else grp_add_core
+template <typename B, bool G2>
+BLS_INLINE void grp_add_table(uint32_t *vals, int *flags, int d, bool z2) {
+    using S = curve_slots<G2>;
+    using Grp = typename curve_progs<B, G2>::Grp;
     const unsigned all = (1u << S::NC) - 1u;
     const bool z1 = grp_zero_mask<Grp>((B *)nullptr, vals, S::A + 2 * S::NC, S::NC, flags) == all;
     if (d == 0) {
@@ -138,16 +163,7 @@ BLS_INLINE void grp_add_table(uint32_t *vals, int *flags, int d, bool z2) {
     }
     if (z2) return;
     grp_copy<B, Grp>(vals, S::B, t, S::NP);
-    Pr::add(vals);
-    const unsigned hr = grp_zero_mask<Grp>((B *)nullptr, vals, S::H, 2 * S::NC, flags);
-    if ((hr & all) != all) {
-        grp_copy<B, Grp>(vals, S::A, S::C, S::NP);
-    } else if ((hr >> S::NC) == all) {
-        Pr::dbl(vals);  // equal points
-    } else {
-        grp_copy<B, Grp>(vals, S::A, S::C, 2 * S::NC);  // opposite points: infinity
-        grp_copy<B, Grp>(vals, S::A + 2 * S::NC, -1, S::NC);
-    }
+    grp_add_core<B, G2>(vals, flags);
 }
 
 // A = [z]P, P in the table's slots [1]P with Z = 1 (the caller's): curve.cuh's
@@ -292,7 +308,7 @@ __global__ void __launch_bounds__(ladder_geom<B>::THREADS)
         g2_ladder<B>(q, z, g2, n, blockIdx.x - g1_blocks, slots, flags);
 }
 
-constexpr int SUM_UNITS = 64;  // K10's units over the limb field
+constexpr int SUM_UNITS = 64;  // K10's G1 units over the limb field
 constexpr int SUM_WARPS = 16;  // over RNS
 
 template <typename B>
@@ -300,29 +316,150 @@ __host__ __device__ constexpr int sum_threads() {
     return B::LANES == 32 ? SUM_WARPS * B::LANES : SUM_UNITS * B::LANES;
 }
 
-// C: the coordinate field, B or Fp2 over it
-template <typename B, bool G2>
+// K10's G1 sums: one block a segment
+template <typename B>
 __global__ void __launch_bounds__(sum_threads<B>())
     point_sums_kernel(const uint32_t *__restrict__ pts, const long long *__restrict__ off,
                       uint32_t *out) {
-    using C = typename std::conditional<G2, fp2_t<B>, B>::type;
-    constexpr int L = B::LANES, W = words_of<C>::value;
-    __shared__ jac<C> part[sum_threads<B>()];
+    constexpr int L = B::LANES, W = B::WORDS;
+    __shared__ jac<B> part[sum_threads<B>()];
     field_prologue((B *)nullptr);
     int d = blockIdx.x;
     const uint32_t *seg = pts + off[d] * 3 * W;
-    block_tree_sum(part, off[d + 1] - off[d], [&](long long i, jac<C> &e) {
+    block_tree_sum(part, off[d + 1] - off[d], [&](long long i, jac<B> &e) {
         fload(e.x, seg + (3 * i) * W);
         fload(e.y, seg + (3 * i + 1) * W);
         fload(e.z, seg + (3 * i + 2) * W);
         return true;
     });
     if (threadIdx.x < L) {
-        C x, y;
+        B x, y;
         jac_to_affine(x, y, part[threadIdx.x]);
         fstore(out + (2 * d) * W, x);
         fstore(out + (2 * d + 1) * W, y);
     }
+}
+
+// --- K10's G2 collapse on K9's G2 groups, across blocks --------------------------
+//
+// U units a segment (a power of two the caller picks from N alone,
+// ops/bls12.py `g2_sum_units`), each a K9 G2 group: 16 lanes under the
+// limb field (8 a block), the 8 warps of a block under RNS. Block b of nb
+// holds units b, b + nb, ... (strided), so its in-block tree (local l takes
+// l + k/2) is the global tree's "unit u takes u + U/2" and the kernel adds
+// in the plain version's order (`segment_sums_limbs(F, pts, off, U)`):
+// unit u folds the entries u, u + U, ... into infinity, the units meet in
+// a tree, and the sum is made affine. The blocks' partials meet across
+// blocks by tickets: a block stores its partial, fences, and takes its
+// pair's ticket; the second of a pair to arrive adds the two (the lower
+// unit first) and goes on to the next level, so the tree keeps its depth
+// and the last block makes the sum affine (`aff_norm`, one unit's inverse,
+// `aff_out`: the products of f2_inv and jac_to_affine spread over the group).
+// A launch a cross-block level in place of the tickets was slower on an
+// H100: RNS 1.37-1.49 ms against 0.95-1.11 at N = 256 and 1,024, limb
+// 0.31-0.34 against 0.30-0.32 (PERF.md).
+
+// the group's THREADS copy n words; `grp_words_cg` reads global memory
+// past L1 (another block may have written it). The caller syncs.
+template <typename Grp>
+BLS_INLINE void grp_words(uint32_t *dst, const uint32_t *src, int n) {
+    for (int i = Grp::thread(); i < n; i += Grp::THREADS) dst[i] = src[i];
+}
+template <typename Grp>
+BLS_INLINE void grp_words_cg(uint32_t *dst, const uint32_t *src, int n) {
+    for (int i = Grp::thread(); i < n; i += Grp::THREADS) dst[i] = __ldcg(src + i);
+}
+
+// A = A + B (B in its slots): curve.cuh's complete jac_add on the group
+template <typename B>
+BLS_INLINE void grp_add_loaded(uint32_t *vals, int *flags) {
+    using S = curve_slots<true>;
+    using Grp = typename curve_progs<B, true>::Grp;
+    const bool z1 = grp_zero_mask<Grp>((B *)nullptr, vals, S::A + 4, 2, flags) == 3u;
+    const bool z2 = grp_zero_mask<Grp>((B *)nullptr, vals, S::B + 4, 2, flags) == 3u;
+    if (z1)
+        grp_copy<B, Grp>(vals, S::A, S::B, S::NP);
+    else if (!z2)
+        grp_add_core<B, true>(vals, flags);
+}
+
+// A's affine image into out (2, 2, W): (0, 0) for infinity (inv(0) = 0)
+template <typename B>
+BLS_INLINE void grp_g2_affine(uint32_t *vals, uint32_t *out) {
+    using S = curve_slots<true>;
+    using Pr = curve_progs<B, true>;
+    using Grp = typename Pr::Grp;
+    constexpr int W = B::WORDS;
+    Pr::aff_norm(vals);
+    if (Grp::rank() == 0) {
+        B n;
+        fp_load(n, vals + CURVE2_H * W);
+        fp_inv(n, n);
+        fp_store(vals + CURVE2_R * W, n);
+    }
+    Grp::sync();
+    Pr::aff_out(vals);
+    grp_words<Grp>(out, vals + S::C * W, 4 * W);
+}
+
+template <typename B>
+__global__ void __launch_bounds__(ladder_geom<B>::THREADS)
+    g2_sums_kernel(const uint32_t *__restrict__ pts, const long long *__restrict__ off,
+                   uint32_t *out, uint32_t *part, int *tickets, int units, int nb) {
+    using L = ladder_geom<B>;
+    using Grp = typename L::G2;
+    using S = curve_slots<true>;
+    constexpr int W = B::WORDS, PW = S::NP * W, K = L::G2_PER_BLOCK;
+    __shared__ __align__(16) uint32_t slots[L::WORDS];
+    __shared__ int flags[8 * K];
+    __shared__ int ticket;
+    field_prologue((B *)nullptr);
+    const long long d = blockIdx.x / nb;
+    const int b = blockIdx.x % nb, k = units / nb, l = Grp::index();
+    uint32_t *vals = slots + l * (L::WORDS / K);
+    int *fl = flags + 8 * l;
+    const long long start = off[d], count = off[d + 1] - start;
+    if (l < k) {
+        for (int s = Grp::rank(); s <= S::NP; s += Grp::SIZE) {  // slot 0 and A: zero
+            B z;
+            fp_set_zero(z);
+            fp_store(vals + (s == 0 ? 0 : S::A + s - 1) * W, z);
+        }
+        Grp::sync();
+        for (long long i = b + (long long)l * nb; i < count; i += units) {
+            grp_words<Grp>(vals + S::B * W, pts + (start + i) * PW, PW);
+            Grp::sync();
+            grp_add_loaded<B>(vals, fl);
+        }
+    }
+    for (int h = k / 2; h > 0; h >>= 1) {
+        __syncthreads();
+        if (l < h) {
+            grp_words<Grp>(vals + S::B * W, slots + (l + h) * (L::WORDS / K) + S::A * W, PW);
+            Grp::sync();
+            grp_add_loaded<B>(vals, fl);
+        }
+    }
+    __syncthreads();
+    uint32_t *seg_part = part + d * nb * PW;
+    for (int j = b, h = nb / 2; h > 0; j &= h - 1, h >>= 1) {
+        // this block holds unit j of the level's 2h; its pair is (j mod h, j mod h + h)
+        if (l == 0) grp_words<Grp>(seg_part + j * PW, vals + S::A * W, PW);
+        __threadfence();
+        __syncthreads();
+        if (threadIdx.x == 0) ticket = atomicAdd(tickets + d * nb + h + (j & (h - 1)), 1);
+        __syncthreads();
+        if (ticket == 0) return;  // the pair's other block goes on
+        __threadfence();
+        if (l == 0) {
+            if (j >= h) grp_words<Grp>(vals + S::B * W, vals + S::A * W, PW);
+            Grp::sync();
+            grp_words_cg<Grp>(vals + (j < h ? S::B : S::A) * W, seg_part + (j ^ h) * PW, PW);
+            Grp::sync();
+            grp_add_loaded<B>(vals, fl);
+        }
+    }
+    if (l == 0) grp_g2_affine<B>(vals, out + d * 4 * W);
 }
 
 template <typename B>
@@ -341,20 +478,30 @@ static int ladders(const void *p, const void *q, const void *z, void *g1, void *
 }
 
 template <typename B>
-static int sums(const void *pts, const void *off, void *out, long long d, long long is_g2,
-                void *stream) {
+static int sums(const void *pts, const void *off, void *out, void *scratch, long long d,
+                long long is_g2, long long units, void *stream) {
     int e = ensure_stack();
     if (e) return e;
     if (d > 0) {
         cudaStream_t s = (cudaStream_t)stream;
-        // the limb G1 instance on four-lane groups (fp_g4), the rest as B
-        using G1 = typename std::conditional<std::is_same<B, fp>::value, fp_g4, B>::type;
-        if (is_g2)
-            point_sums_kernel<B, true><<<(unsigned)d, sum_threads<B>(), 0, s>>>(
+        if (is_g2) {
+            constexpr int K = ladder_geom<B>::G2_PER_BLOCK;
+            if (units < 1 || (units & (units - 1)) || units > (1 << 20))
+                return (int)cudaErrorInvalidValue;
+            const long long nb = units > K ? units / K : 1;
+            // scratch: D·U partials of 6·WORDS words, then D·U tickets
+            int *tickets = (int *)scratch + d * units * 6 * B::WORDS;
+            e = (int)cudaMemsetAsync(tickets, 0, d * nb * sizeof(int), s);
+            if (e) return e;
+            g2_sums_kernel<B><<<(unsigned)(d * nb), ladder_geom<B>::THREADS, 0, s>>>(
+                (const uint32_t *)pts, (const long long *)off, (uint32_t *)out,
+                (uint32_t *)scratch, tickets, (int)units, (int)nb);
+        } else {
+            // the limb G1 instance on four-lane groups (fp_g4), the RNS one as B
+            using G1 = typename std::conditional<std::is_same<B, fp>::value, fp_g4, B>::type;
+            point_sums_kernel<G1><<<(unsigned)d, sum_threads<G1>(), 0, s>>>(
                 (const uint32_t *)pts, (const long long *)off, (uint32_t *)out);
-        else
-            point_sums_kernel<G1, false><<<(unsigned)d, sum_threads<G1>(), 0, s>>>(
-                (const uint32_t *)pts, (const long long *)off, (uint32_t *)out);
+        }
     }
     return (int)cudaGetLastError();
 }
@@ -371,12 +518,14 @@ extern "C" int rlc_ladders_rns(const void *p, const void *q, const void *z, void
     return ladders<rns_w>(p, q, z, g1, g2, n, has_g1, has_g2, affine, stream);
 }
 
-extern "C" int point_sums(const void *pts, const void *off, void *out, long long d,
-                          long long is_g2, void *stream) {
-    return sums<fp>(pts, off, out, d, is_g2, stream);
+// pts (N, 3, [2,] W) Jacobian, off (D + 1,), out (D, 2, [2,] W); G2: scratch
+// of D·units·(6·W + 1) words, units a power of two
+extern "C" int point_sums(const void *pts, const void *off, void *out, void *scratch,
+                          long long d, long long is_g2, long long units, void *stream) {
+    return sums<fp>(pts, off, out, scratch, d, is_g2, units, stream);
 }
 
-extern "C" int point_sums_rns(const void *pts, const void *off, void *out, long long d,
-                              long long is_g2, void *stream) {
-    return sums<rns_w>(pts, off, out, d, is_g2, stream);
+extern "C" int point_sums_rns(const void *pts, const void *off, void *out, void *scratch,
+                              long long d, long long is_g2, long long units, void *stream) {
+    return sums<rns_w>(pts, off, out, scratch, d, is_g2, units, stream);
 }

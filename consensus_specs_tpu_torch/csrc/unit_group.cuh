@@ -3,15 +3,17 @@
 // types serves K12's and K25's hand schedules (csrc/f12_group.cuh) and the
 // group programs of K9 and K11 (csrc/bls_group.cuh). A group type gives its
 // SIZE in units, a unit's `rank` in the group, the group's `index` in the
-// block and `sync`, which orders the group's shared-memory exchange.
+// block and `sync`, which orders the group's shared-memory exchange; a
+// thread's index `thread()` among the group's THREADS moves words.
 #pragma once
 #include "fp.cuh"
 
 // G lanes of a warp (G = 32, 16, 8 or 4), group threadIdx.x / G of the block
 template <int G>
 struct lanes {
-    static constexpr int SIZE = G;
+    static constexpr int SIZE = G, THREADS = G;
     static BLS_INLINE int rank() { return threadIdx.x & (G - 1); }
+    static BLS_INLINE int thread() { return rank(); }  // of THREADS
     static BLS_INLINE int index() { return threadIdx.x / G; }
     static BLS_INLINE unsigned mask() {
         return G == 32 ? 0xffffffffu : ((1u << (G & 31)) - 1u) << (threadIdx.x & 31 & ~(G - 1));
@@ -24,8 +26,9 @@ struct lanes {
 // give K9's RNS kernel 48 registers and spills, 10 % slower: PERF.md.)
 template <int W, int PER>
 struct warps {
-    static constexpr int SIZE = W;
+    static constexpr int SIZE = W, THREADS = 32 * W;
     static BLS_INLINE int rank() { return (threadIdx.x >> 5) % W; }
+    static BLS_INLINE int thread() { return (threadIdx.x & 31) + 32 * rank(); }
     static BLS_INLINE int index() { return (threadIdx.x >> 5) / W; }
     static BLS_INLINE void sync() {
         if (PER == 1)

@@ -36,14 +36,16 @@ csrc/fp_rns.cuh, a unit a warp, for K9-K12). K9's ladders and K11's Miller
 loop run an item on a group of units, their steps' Fp products a unit each
 (csrc/bls_group.cuh, the programs of ops/bls12_programs.py; K9's limb G1
 ladder on csrc/g1_lanes.cuh's four lanes), K12's exponentiation too
-(csrc/f12_group.cuh), K10's limb G1 sums on four-lane groups and its other
-instances a unit a point:
+(csrc/f12_group.cuh), K10's limb G1 sums on four-lane groups, its G2
+collapse on K9's G2 groups across blocks (both fields) and its RNS G1 sums
+a warp a unit:
 - K9 `rlc_ladders`: [z]·pk over G1 and [z]·sig over G2, 2-bit windows
   (`g1_scalar_mul_batch` :782, `g2_scalar_mul_batch` :957), G1 made affine
   in the same thread where asked (:868);
-- K10 `point_sums`: one block a segment, the sum of its Jacobian points made
-  affine (`g2_sum_reduce` :1014 + `g2_jacobian_to_affine` :1043,
-  `g1_segment_sum` :1172);
+- K10 `point_sums`: the sum of each segment's Jacobian points made affine
+  (`g2_sum_reduce` :1014 + `g2_jacobian_to_affine` :1043,
+  `g1_segment_sum` :1172): G1 one block a segment, G2 `g2_sum_units(N)`
+  groups a segment whose blocks meet by tickets;
 - K11 `miller_loop` (:514);
 - K12 `final_exp`: the final exponentiation and `f12_is_one` (:611, :628),
   by item (`pairing_cube_batch` :762, `pairing_check_batch` :768) or after a
@@ -52,7 +54,8 @@ instances a unit a point:
 - K25 `f12_product`: that tree product alone, no exponentiation
   (`f12_prod_reduce` :1061 as the mesh collectives use it);
 - K13 `g1_msm` (csrc/msm.cu): the windowed bucket MSM (`g1_msm_pippenger`
-  :1291), affine out;
+  :1291), affine out, every point operation on four lanes, its combine as
+  interleaved Horner chains on one warp;
 - K14 `g1_subgroup` (csrc/msm.cu): r-subgroup membership per item (:1347),
   by phi(P) = -[x^2]·P (csrc/curve.cuh `jac_in_g1`).
 The committee-key sum (`_g1_aggregate_program` :1339) is K10 over one
@@ -199,7 +202,7 @@ def _limb_const(rows, like: torch.Tensor) -> torch.Tensor:
 class _LimbField:
     """Sixteen-bit limbs (..., 24) int64, every value canonical (ops/fp.py)."""
     words = NWORDS  # int32 words an element at the kernels' boundary
-    units = 64      # K10's units a block (csrc/rlc.cu SUM_UNITS)
+    units = 64      # K10's G1 units a block (csrc/rlc.cu SUM_UNITS)
     add, sub, neg = staticmethod(fp_add), staticmethod(fp_sub), staticmethod(fp_neg)
     mul, sqr, inv = staticmethod(fp_mul), staticmethod(fp_sqr), staticmethod(fp_inv)
     is_zero, is_one = staticmethod(fp_is_zero), staticmethod(fp.fp_is_one_mont)
@@ -230,7 +233,7 @@ class _RnsField:
     """RNS residues (..., 64) int32, redundant (ops/fp_rns.py), through K24's
     plain version."""
     words = fp_rns.NLIMBS
-    units = 16  # K10's units a block (csrc/rlc.cu SUM_WARPS)
+    units = 16  # K10's G1 units a block (csrc/rlc.cu SUM_WARPS)
     to_plain = from_plain = staticmethod(_same)
 
     @staticmethod
@@ -845,20 +848,35 @@ def rlc_ladders(p, q, zbits, affine_g1=True):
     return g1, g2
 
 
+def g2_sum_units(n: int) -> int:
+    """K10's G2 units a segment for N points in all (csrc/rlc.cu
+    `g2_sums_kernel`): the largest power of two at most N / 4, in [1, 256],
+    so that a unit folds about four points before the tree."""
+    units = 1
+    while units < 256 and units * 8 <= n:
+        units *= 2
+    return units
+
+
 def point_sums_plain(pts, offsets):
     """Plain version of K10 (see `point_sums`)."""
     F = word_field(pts.shape[-1])
-    G = _Fp if pts.dim() == 3 else _Fp2
-    return F.from_plain(segment_sums_limbs(G, F.to_plain(pts), offsets.cpu(), F.units))
+    g2 = pts.dim() == 4
+    units = g2_sum_units(pts.shape[0]) if g2 else F.units
+    return F.from_plain(segment_sums_limbs(_Fp2 if g2 else _Fp, F.to_plain(pts), offsets.cpu(),
+                                           units))
 
 
 def point_sums(pts, offsets):
     """K10: the affine sum of each segment [offsets[d], offsets[d+1]) of
     Jacobian points, G1 (N, 3, w) -> (D, 2, w) or G2 (N, 3, 2, w) ->
     (D, 2, 2, w). An empty segment sums to infinity and comes out (0, 0).
-    `offsets` (D + 1,) int64 on the points' device. One block a segment of
-    64 units (16 warps under RNS); the limb G1 sums run a unit on four lanes
-    (256 threads a block). Kernel on CUDA, plain on the CPU."""
+    `offsets` (D + 1,) int64 on the points' device. G1: one block a segment
+    of 64 units (16 warps under RNS; the limb units four lanes each, 256
+    threads a block). G2: `g2_sum_units(N)` units a segment, each one of
+    K9's G2 groups (16 lanes, or a block of 8 warps under RNS), over as many
+    blocks as they fill, the blocks' partials meeting by tickets. Kernel on
+    CUDA, plain on the CPU."""
     g2 = pts.dim() == 4
     w = pts.shape[-1]
     word_field(w)
@@ -870,8 +888,12 @@ def point_sums(pts, offsets):
     offsets = offsets.contiguous()
     d = offsets.shape[0] - 1
     out = torch.empty((d, 2) + pts.shape[2:], dtype=torch.int32, device=pts.device)
-    _launch("rlc", "point_sums", w, 3, 1, pts.data_ptr(), offsets.data_ptr(), out.data_ptr(), d,
-            int(g2), build.stream_ptr(pts))
+    units = g2_sum_units(pts.shape[0]) if g2 else 0
+    # G2: the blocks' partials (6 elements each) and their tickets
+    scratch = (torch.empty(d * units * (6 * w + 1), dtype=torch.int32, device=pts.device)
+               if g2 else None)
+    _launch("rlc", "point_sums", w, 4, 2, pts.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+            _ptr(scratch), d, int(g2), units, build.stream_ptr(pts))
     return out
 
 

@@ -37,7 +37,11 @@ The programs:
 - K9 (csrc/rlc.cu): `jac_dbl` and `jac_add` (the complete add's product
   part: the case selects stay in the kernel, as curve.cuh's jac_add has
   them) over Fp2 (G2) for both fields and over Fp (G1) for RNS; the limb
-  G1 ladder runs on csrc/g1_lanes.cuh's four-lane groups.
+  G1 ladder runs on csrc/g1_lanes.cuh's four-lane groups;
+- K10's G2 collapse (csrc/rlc.cu) adds with K9's G2 `jac_add` and makes its
+  sum affine with `aff_norm` (the norm Z0^2 + Z1^2 that f2_inv inverts)
+  and `aff_out` (from the norm's inverse, one unit's `fp_inv` between the
+  two: Z^-1, Z^-2, Z^-3 and (X·Z^-2, Y·Z^-3), curve.cuh's jac_to_affine).
 
 Scheduling is list scheduling by the longest path to the step's end:
 product rounds of at most G jobs alternate with linear rounds, a product
@@ -468,6 +472,26 @@ def trace_jac_dbl(g2: bool, kf: int) -> Trace:
     return b
 
 
+def trace_aff_norm(kf: int) -> Trace:
+    """H0 = Z0^2 + Z1^2, the norm of A's Z (csrc/tower.cuh f2_inv)."""
+    b = Trace(kf)
+    z0, z1 = b.inp("A4"), b.inp("A5")
+    b.out("H0", z0 * z0 + z1 * z1)
+    return b
+
+
+def trace_aff_out(kf: int) -> Trace:
+    """C = (X·Z^-2, Y·Z^-3) of A, given R0 = the norm's inverse: f2_inv's
+    (Z0·n, -(Z1·n)), then curve.cuh's jac_to_affine."""
+    b = Trace(kf)
+    X, Y, Z = _pt_in(b, "A", True)
+    n = b.inp("R0")
+    zinv = (Z[0] * n, -(Z[1] * n))
+    zinv2 = f2_sqr(zinv)
+    _pt_out(b, "C", (f2_mul(X, zinv2), f2_mul(Y, f2_mul(zinv, zinv2))), True)
+    return b
+
+
 def trace_jac_add(g2: bool, kf: int) -> Trace:
     """C = A + B by the add formula; H and R for the case tests."""
     b = Trace(kf)
@@ -621,8 +645,12 @@ def family_programs(family: str, field: str) -> dict:
                 "add": build_program(trace_miller_add(kf), "miller_add", MILLER_LAYOUT, g)}
     g2 = family == "g2"
     layout = curve_layout(g2)
-    return {"dbl": build_program(trace_jac_dbl(g2, kf), "jac_dbl", layout, g),
-            "add": build_program(trace_jac_add(g2, kf), "jac_add", layout, g)}
+    progs = {"dbl": build_program(trace_jac_dbl(g2, kf), "jac_dbl", layout, g),
+             "add": build_program(trace_jac_add(g2, kf), "jac_add", layout, g)}
+    if g2:
+        progs["aff_norm"] = build_program(trace_aff_norm(kf), "aff_norm", layout, g)
+        progs["aff_out"] = build_program(trace_aff_out(kf), "aff_out", layout, g)
+    return progs
 
 
 
@@ -743,8 +771,8 @@ def cuda_programs_header() -> str:
     round_rows = ",\n    ".join(f"{{0x{a:08x}u, {b}u}}" for a, b in rounds)
     job_rows = ",\n    ".join("{" + ", ".join(f"0x{w:08x}u" for w in j) + "}" for j in jobs)
     return f"""// Generated by consensus_specs_tpu_torch.ops.bls12_programs.cuda_programs_header();
-// a test holds this file equal to its output. The group programs of K9 and
-// K11 (csrc/bls_group.cuh runs them): a program is a span of rounds, a
+// a test holds this file equal to its output. The group programs of K9, K10
+// and K11 (csrc/bls_group.cuh runs them): a program is a span of rounds, a
 // round {{kind | terms << 8 | jobs << 16, first job}}, a job four words:
 // product (kind 0): bytes 0-5 the slots of operand x's signed terms, 6-11
 //   operand y's, 12 the result's slot, 13-14 the signs (bit k: x's term k
@@ -929,6 +957,24 @@ def jac_add_mirror(p1, p2, g2: bool):
         lad.add_table(s, 1, lad.zero(s, lad.T + 2 * lad.nc, lad.nc))
         out.append(s[lad.A:lad.A + lad.np, 0])
     return F.from_plain(torch.stack(out)).reshape(p1.shape)
+
+
+def g2_affine_mirror(pts):
+    """K10's G2 affine step as its group runs it (csrc/rlc.cu: `aff_norm`,
+    one unit's inverse of the norm, `aff_out`) over the plain field of the
+    words' width: Jacobian (N, 3, 2, w) words -> affine (N, 2, 2, w)."""
+    F, field = _field_of(pts)
+    progs = family_programs("g2", field)
+    lay = curve_layout(True)
+    a, h, r, c = (lay.index(n) for n in ("A0", "H0", "R0", "C0"))
+    pl = F.to_plain(pts).reshape(pts.shape[0], 6, -1)
+    s = torch.zeros((max(pr.slots for pr in progs.values()), pts.shape[0], pl.shape[-1]),
+                    dtype=pl.dtype)
+    s[a:a + 6] = pl.transpose(0, 1)
+    play(progs["aff_norm"], s, F)
+    s[r] = F.inv(s[h])
+    play(progs["aff_out"], s, F)
+    return F.from_plain(s[c:c + 4].transpose(0, 1)).reshape(pts.shape[0], 2, 2, -1)
 
 
 def jac_double_mirror(pts, g2: bool):

@@ -1,13 +1,16 @@
-"""Time K8's inverse, K9, K10, K11, K12 and K25 in any checkout of the port,
-so that two checkouts can be timed in turns on one card.
+"""Time K8's inverse, K9, K10, K11, K12, K13 and K25 in any checkout of the
+port, so that two checkouts can be timed in turns on one card.
 
     python3 consensus_specs_tpu_torch/time_bls_kernels.py [--root CHECKOUT] [--out FILE]
+        [--rows SUBSTRING,...] [--profile]
 
 Imports `consensus_specs_tpu_torch` from CHECKOUT (default: the checkout
 this file is in), builds its kernels there, and times with CUDA events, at
 the main path's shapes: K8 op 5 (the inverse) at M = 256; K10's committee
 sum (`g1_aggregate`, one 512-key segment), its G2 collapse at N = 256 and
-its grouped G1 sums (64 segments of 16); K9 at N = 256 (G1 affine and G2,
+1,024 in both fields and its grouped G1 sums (64 segments of 16); K13 at
+the KZG batch's two shapes, (128, 64) and (512, 255), with the inputs
+`chip_smoke.py` builds (`kzg_msm_args`); K9 at N = 256 (G1 affine and G2,
 the block flush's launch), G1 alone and G2 alone, and at the gossip's 1,024
 (G1 Jacobian and G2); K11 at B = 257 and 1,025; K12's tail at B = 257 and
 its batch mode at 256 items with m2; K9, K11 and K12 in the limb field and
@@ -16,9 +19,15 @@ checkout's own wrappers (keys sk_0 + j as `crypto/msm_synthetic` makes a
 committee, G2 points from K9's ladders over 8 hashed messages, Miller values
 from K11 over 8 pairs, tiled), so two checkouts see the same inputs; every
 output's sha256 is printed beside its time, and two checkouts that compute
-the same function print the same digests. Prints one JSON object (and
-writes it to FILE): the card, the checkout, and per row its ms and digest.
-Needs a card; exits nonzero without one.
+the same function print the same digests (RNS residues follow a kernel's
+order of operations: a checkout that changes it prints other digests for
+the same values mod p). `--rows` keeps the rows whose
+name holds one of the substrings; `--profile` runs each kept row once more
+under `torch.profiler` and prints the device time of every CUDA kernel it
+launched (K13's three kernels apart, say). Prints one JSON object (and
+writes it to FILE): the card, the checkout, and per row its ms and digest
+(and its kernels' device times under `--profile`). Needs a card; exits
+nonzero without one.
 """
 from __future__ import annotations
 
@@ -30,10 +39,62 @@ import sys
 from pathlib import Path
 
 
+def kzg_msm_args(kzg_in, dev, seed: int = 6) -> dict:
+    """K13's arguments at the KZG batch's two shapes, as `chip_smoke.py`
+    times them: (128, 64), the 128 sample proofs with 63-bit scalars, and
+    (512, 255), the folded side (negated proofs, negated commitments, the
+    setup's first points) with 255-bit scalars mod r, each padded to its
+    power-of-two bucket with the generator and zero scalars. `kzg_in` is
+    `crypto.msm_synthetic.kzg_inputs(seed=0)`. Returns {label: (points,
+    scalars, nbits)}."""
+    import numpy as np
+
+    from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
+    from consensus_specs_tpu_torch.crypto import kzg_batch
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    rng = np.random.default_rng(seed)
+    samples = kzg_in["samples"]
+    proofs = [kzg_batch._aff(it[3]) for it in samples]
+    side64 = (proofs, [int(v) for v in rng.integers(1, 2**63, len(proofs), dtype=np.int64)])
+    folded = ([kzg_batch._neg(p) for p in proofs]
+              + [kzg_batch._neg(kzg_batch._aff(it[0])) for it in samples]
+              + [kzg_batch._aff(g) for g in kzg_in["setup"].g1[:len(samples[0][2])]])
+    side255 = (folded, [int.from_bytes(rng.bytes(32), "little") % oracle.R for _ in folded])
+    out = {}
+    for label, (points, scalars), nbits in (("n=128 nbits=64", side64, 64),
+                                             ("n=512 nbits=255", side255, 255)):
+        pad = B._msm_pow2_pad(len(points)) - len(points)
+        out[label] = (B._jacobian_words(points + [oracle.G1_GEN_AFF] * pad, 0, dev),
+                      B.scalar_words(scalars + [0] * pad, nbits).to(dev), nbits)
+    return out
+
+
+def kernel_times(fn) -> list:
+    """[(kernel name, calls, device us)] of the CUDA kernels one call of fn
+    launches, from torch.profiler (CUPTI)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0)
+        if us and ev.count and not ev.key.startswith(("aten::", "cuda", "Activity")):
+            rows.append((ev.key, ev.count, float(us)))
+    return sorted(rows, key=lambda r: -r[2])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--rows", default="")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -45,6 +106,7 @@ def main(argv=None) -> int:
         return 2
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
     from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
+    from consensus_specs_tpu_torch.crypto import msm_synthetic
     from consensus_specs_tpu_torch.crypto.hash_to_curve import hash_to_curve_g2
     from consensus_specs_tpu_torch.engine.convert import rns_from_words
     from consensus_specs_tpu_torch.kernels import build
@@ -52,10 +114,11 @@ def main(argv=None) -> int:
     from consensus_specs_tpu_torch.ops import fp
 
     pkg = Path(B.__file__).resolve().parents[1]
-    reports = build.build_all(("fp", "rlc", "pairing"))
-    # registers, stack and spills of K9's and K11's kernels, ladders and
-    # program interpreters, an instance a line
-    ptxas, keys = [], ("ladders_kernel", "miller_loop_kernel", "scalar_mul", "slp_run")
+    reports = build.build_all(("fp", "rlc", "pairing", "msm"))
+    # registers, stack and spills of K9's, K10's, K11's and K13's kernels,
+    # ladders and program interpreters, an instance a line
+    ptxas, keys = [], ("ladders_kernel", "miller_loop_kernel", "scalar_mul", "slp_run",
+                       "sums_kernel", "msm_")
     for text in reports.values():
         lines = text.splitlines()
         ptxas += [" | ".join(x.strip() for x in lines[i:i + 3]) for i, line in enumerate(lines)
@@ -77,6 +140,9 @@ def main(argv=None) -> int:
     z = zbits_from_ints([int(v) for v in rng.integers(1, 2**63, 1024, dtype=np.int64)]).to(dev)
     g1j, _ = B.rlc_ladders(torch.cat([p_aff, p_aff]).to(dev), None, z, affine_g1=False)
     _, g2j = B.rlc_ladders(None, q8[torch.arange(256) % 8].to(dev), z[:256])
+    _, g2k = B.rlc_ladders(None, q8[torch.arange(1024) % 8].to(dev), z)
+    rg2j, rg2k = (rns_from_words(t.cpu()).to(dev) for t in (g2j, g2k))
+    msm = kzg_msm_args(msm_synthetic.kzg_inputs(seed=0), dev)
     seg16 = torch.arange(0, 1025, 16, device=dev)
     idx = torch.arange(513) % 8
     m = B.miller_loop(q8[idx].to(dev), p_aff[idx].to(dev))
@@ -117,7 +183,15 @@ def main(argv=None) -> int:
         "point_sums_g1_aggregate_512": (lambda: B.g1_aggregate(committee), 20),
         "point_sums_g2_N256": (lambda: B.point_sums(g2j, torch.tensor([0, 256], device=dev)),
                                10),
+        "point_sums_rns_g2_N256": (lambda: B.point_sums(rg2j, torch.tensor([0, 256], device=dev)),
+                                   5),
+        "point_sums_g2_N1024": (lambda: B.point_sums(g2k, torch.tensor([0, 1024], device=dev)),
+                                10),
+        "point_sums_rns_g2_N1024": (
+            lambda: B.point_sums(rg2k, torch.tensor([0, 1024], device=dev)), 5),
         "point_sums_g1_64x16": (lambda: B.point_sums(g1j, seg16), 10),
+        "g1_msm_128x64": (lambda: B.g1_msm(*msm["n=128 nbits=64"]), 5),
+        "g1_msm_512x255": (lambda: B.g1_msm(*msm["n=512 nbits=255"]), 5),
         "final_exp_tail_B257": (lambda: B.final_exp_tail(m[:256], m[256]), 3),
         "final_exp_batch_256": (lambda: B.final_exp_batch(m1, m2), 3),
         "final_exp_rns_tail_B257": (lambda: B.final_exp_tail(r257[:256], r257[256]), 3),
@@ -128,7 +202,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     out = {"card": card, "package": str(pkg), "ptxas": ptxas, "rows": {}}
+    keep = [k for k in args.rows.split(",") if k]
     for name, (fn, reps) in rows.items():
+        if keep and not any(k in name for k in keep):
+            continue
         res = fn()
         torch.cuda.synchronize()
         res = tuple(t for t in (res if isinstance(res, tuple) else (res,)) if t is not None)
@@ -143,6 +220,11 @@ def main(argv=None) -> int:
                              "sha256": digest[:16]}
         print(f"{name}: {out['rows'][name]['ms']:.5f} ms ({reps} reps) {digest[:16]}",
               flush=True)
+        if args.profile:
+            kernels = kernel_times(fn)
+            out["rows"][name]["kernels_us"] = kernels
+            for kname, calls, us in kernels:
+                print(f"  {name} kernel {kname[:90]}: {calls} calls, {us:.2f} us", flush=True)
     line = json.dumps(out)
     print(line)
     if args.out:

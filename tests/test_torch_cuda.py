@@ -400,6 +400,34 @@ def test_point_sums_kernel_matches_plain(cuda, g2):
     assert torch.equal(got.cpu(), tbls.point_sums_plain(pts, off))
 
 
+@pytest.mark.parametrize("field", ["limb", "rns"])
+@pytest.mark.parametrize("n", [27, 256, 1024])
+def test_g2_collapse_kernel_matches_plain(cuda, field, n):
+    """K10's G2 collapse (K9's G2 groups over g2_sum_units(N) units, the
+    blocks' partials meeting by tickets) bit-equal to the plain version in
+    its order at the main path's N = 256 and 1,024 and at 27 (a partial last
+    round): random points with infinity among them over one segment and
+    over three (one empty), and P + P, P + (-P) meeting in a unit's fold, at
+    the tree's first level and at its last, and all at infinity."""
+    from consensus_specs_tpu_torch.engine.convert import rns_from_words
+
+    units = tbls.g2_sum_units(n)
+    cases = msm_synthetic.g2_sum_cases(n, units, n)
+    name = "point_sums_rns" if field == "rns" else "point_sums"
+    for case, pts in cases.items():
+        if field == "rns":
+            pts = rns_from_words(pts)
+        pts = pts.to(cuda)
+        segments = [[0, n]] + ([[0, 5, 5, n]] if case == "random" else [])
+        for seg in segments:
+            off = torch.tensor(seg, device=cuda)
+            with _counted(name):
+                got = tbls.point_sums(pts, off)
+            assert torch.equal(got, tbls.point_sums_plain(pts, off)), (case, seg)
+        if case in ("infinity", "last_cancel") and field == "limb":
+            assert not got.any()  # (0, 0)
+
+
 def _edge_segments():
     """K10's G1 edge segments: P + (-P), Q + Q + S, pads among keys, pads
     alone, and the block's first 512-key committee; (Jacobian words,
@@ -567,6 +595,23 @@ def test_g1_msm_kernel_matches_plain(cuda, n, nbits, window):
     with _counted("g1_msm"):
         got = tbls.g1_msm(pts.to(cuda), sc.to(cuda), nbits, window)
     assert torch.equal(got.cpu(), tbls.g1_msm_plain(pts, sc, nbits, window))
+
+
+@pytest.mark.parametrize("window", [4, 5])
+@pytest.mark.parametrize("n,nbits", [(128, 64), (512, 255)])
+def test_g1_msm_kernel_at_the_kzg_shapes(cuda, n, nbits, window):
+    """K13 (four-lane tables and window sums, the tail's chains on one warp)
+    at the KZG batch's two shapes: scalars 0, 1, 2^64 - 1 and 2^nbits - 1
+    among random ones, a repeated point and a cancelling pair; all-zero
+    scalars give the identity, (0, 0)."""
+    pts, sc = _msm_items(n, nbits, n + window)
+    sc[3] = tbls.scalar_words([(1 << nbits) - 1], nbits)[0]
+    pts, sc = pts.to(cuda), sc.to(cuda)
+    with _counted("g1_msm"):
+        got = tbls.g1_msm(pts, sc, nbits, window)
+    assert torch.equal(got, tbls.g1_msm_plain(pts, sc, nbits, window))
+    zero = torch.zeros_like(sc)
+    assert not tbls.g1_msm(pts, zero, nbits, window).any()
 
 
 def test_g1_msm_kernel_identity(cuda):
