@@ -134,14 +134,18 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    `das_kernels` on the card): (a) `extend_data` on one slot's blobs,
    INITIAL_ACTIVE_SHARDS = 64 of 16,384 points each
    (`testlib/blobs.slot_blobs`, RandomState(--seed)), launch counts zeroed
-   before and read after (K22 twice and K23 four times a blob); every first
-   half equals its data, and the slot's 64 extension NTTs again as one
-   (64, 32,768) K22 call equal K22's plain version on the card and the
-   spec's second halves; one blob's (1, 16,384) inverse and (1, 32,768)
-   forward NTT and K23 at M = 32,768 equal their plain versions; (b)
+   before and read after (K22 twice a blob, its canonical entry with the
+   Montgomery conversions folded in, and K23 never); every first half
+   equals its data, and the slot's 64 extension NTTs again as one (64,
+   32,768) K22 call equal K22's plain version on the card and the spec's
+   second halves; one blob's (1, 16,384) inverse and (1, 32,768) forward
+   NTT, on Montgomery and on canonical words (the latter also equal to the
+   spec's second half), and K23 at M = 32,768 equal their plain versions;
+   (b)
    `reconstruct_extended_data` of blob 0 with 256 of its 4,096 samples
    withheld (2,048 points; withholding stops there because the zero
-   polynomial stays on the host and is quadratic), counted (K22 six times),
+   polynomial stays on the host and is quadratic), counted (K22 six times,
+   K23 once: the inverses of canonical values),
    equal to (a)'s extension; twins with one value altered and with 2,049
    samples withheld must raise AssertionError; (c) `sample_data` and
    `verify_sample` of a 16-point blob with `kzg.insecure_test_setup` (host
@@ -212,10 +216,12 @@ Phases (any failure raises and exits nonzero; there is no CPU fallback):
    once, K21 beside `index_select` over the rows it gathers by CUDA events,
    by torch.profiler's device time and by the host clock a call; K22 at the
    DAS lane's (64, 32,768) forward, (1, 16,384) inverse and (1, 32,768)
-   forward, and K23's product at M = 32,768 and its inverse there, their
-   least time from (n/2)·log2 n Fr products (plus n for the 1/n scale) or M
-   products times the instructions of K23's product in its SASS, or the
-   bytes read and written once; K24's mont_mul at M = 2, 256 and 1,024 and
+   forward, and its canonical entry at the last two, and K23's product at
+   M = 32,768, its inverse and its inverse of canonical words there, their
+   least time from (n/2)·log2 n Fr products (plus n for each constant row:
+   1/n, R^2 mod r, 1) or M products times the instructions of K23's product
+   in its SASS, or the bytes read and written once, with ptxas's registers
+   and stack of each instance; K24's mont_mul at M = 2, 256 and 1,024 and
    mont_reduce at 256, bit-equal to the plain version there, their least
    time the instructions a product needs (3,716) x M or the bytes, the
    larger, and beside it the SASS one lane executes a product and the
@@ -2360,9 +2366,9 @@ def das_main_path(dev, seed, err) -> tuple:
         slot_ms = 1e3 * (time.perf_counter() - wall0)
         ext_device_ms = clock.device_ms()
     counted("extension")
-    require(parts["extension"] == {"fr_ntt": 2 * len(data), "fr_ops": 4 * len(data)},
-            f"the extensions launched {parts['extension']}: want K22 twice and K23 four "
-            "times a blob")
+    require(parts["extension"] == {"fr_ntt": 2 * len(data), "fr_ops": 0},
+            f"the extensions launched {parts['extension']}: want K22 twice a blob and K23 "
+            "never")
     require(all(spec.unextend_data(p) == b for p, b in zip(published, data)),
             "an extension's first half differs from its data")
     # the slot's extension NTTs again as one batch, held against the plain
@@ -2391,8 +2397,23 @@ def das_main_path(dev, seed, err) -> tuple:
             err["fr_ntt"] = max(err["fr_ntt"], max_abs_err(got, plain))
             require(torch.equal(got, plain), f"K22 at (1, {x.shape[1]}) differs from its plain "
                     "version")
+        # the DAS path's canonical entry (conversions folded into K22) on the
+        # first blob, against its plain composition and the spec's second half
+        blob = words[:n][perm].reshape(1, n, 8)
+        coeffs_w = fr.ntt_words(blob, inverse=True)
+        padded_w = torch.cat([coeffs_w, torch.zeros_like(coeffs_w)], dim=1)
+        full_w = fr.ntt_words(padded_w)
+        for got, x, inverse in ((coeffs_w, blob, True), (full_w, padded_w, False)):
+            plain = fr.ntt_words_plain(x, inverse)
+            err["fr_ntt"] = max(err["fr_ntt"], max_abs_err(got, plain))
+            require(torch.equal(got, plain), f"K22's canonical entry at (1, {x.shape[1]}) "
+                    "differs from its plain composition")
+        require(torch.equal(full_w[0, 1::2][perm], want[:n]),
+                "the canonical entry's extension differs from the spec's second half")
+        words_in = dict(inverse=blob, forward=padded_w)
         conv = words[:2 * n].contiguous()
-        for op, b in ((fr.OP_MUL, r2), (fr.OP_MUL, one), (fr.OP_INV, None)):
+        for op, b in ((fr.OP_MUL, r2), (fr.OP_MUL, one), (fr.OP_INV, None),
+                      (fr.OP_INV_WORDS, None)):
             got, plain = fr.fr_ops(op, conv, b), fr.fr_ops_plain(
                 op, conv, None if b is None else b.expand_as(conv))
             err["fr_ops"] = max(err["fr_ops"], max_abs_err(got, plain))
@@ -2400,7 +2421,8 @@ def das_main_path(dev, seed, err) -> tuple:
                     "version")
     print(f"das extension check: {len(data)} first halves = data; the ({len(data)}, {2 * n}) "
           f"batch of extension NTTs = K22's plain version = the spec's second halves; one "
-          f"blob's (1, {n}) inverse and (1, {2 * n}) forward NTT and K23 at M={2 * n} = plain",
+          f"blob's (1, {n}) inverse and (1, {2 * n}) forward NTT, on Montgomery and on "
+          f"canonical words (= the spec's second half), and K23 at M={2 * n} = plain",
           flush=True)
 
     # (b) one blob rebuilt from its samples, DAS_WITHHELD withheld
@@ -2415,8 +2437,9 @@ def das_main_path(dev, seed, err) -> tuple:
         host = dict(clock.host)
     counted("reconstruction")
     require(rebuilt == published[0], "the reconstruction differs from the extension")
-    require(parts["reconstruction"]["fr_ntt"] == 6,
-            f"the reconstruction launched K22 {parts['reconstruction']['fr_ntt']} times, not 6")
+    require(parts["reconstruction"] == {"fr_ntt": 6, "fr_ops": 1},
+            f"the reconstruction launched {parts['reconstruction']}: want K22 six times and "
+            "K23 once")
     with Aside():
         altered = list(samples)
         k = next(i for i, s in enumerate(samples) if s is not None)
@@ -2485,49 +2508,63 @@ def das_main_path(dev, seed, err) -> tuple:
                das_sampling_ms=sampling_ms, sampling_points=DAS_SAMPLE_POINTS,
                sampling_samples=len(drawn), twins_refused=refused, forged_refused=forged_refused)
     inputs = dict(batch=padded, inverse=mont[:1].contiguous(), forward=padded[:1].contiguous(),
-                  conv=conv, r2=r2)
+                  conv=conv, r2=r2, words=words_in)
     return out, parts, inputs
 
 
 def das_rows(inputs, parts, err, sass_fr_mul, bound) -> list:
     """K22 at the slot's (64, 32,768) batch of extension NTTs, one blob's
-    (1, 16,384) inverse and (1, 32,768) forward; K23 at the conversions'
-    M = 32,768 (and the recovery's inversions there): each timed by CUDA
-    events beside its plain version, its least time from (n/2)·log2 n Fr
-    products (plus n for the inverse's 1/n) of K23's product SASS count, or
-    the bytes read and written once."""
+    (1, 16,384) inverse and (1, 32,768) forward, and its canonical entry
+    (the DAS path's, conversions folded in) at the blob's two transforms;
+    K23 at the conversions' M = 32,768, its inverse there and the
+    recovery's inverse of canonical words: each timed by CUDA events beside
+    its plain version, its least time from (n/2)·log2 n Fr products (plus
+    n for each constant row: 1/n, R^2 mod r, 1) of K23's product SASS
+    count, or the bytes read and written once."""
     from consensus_specs_tpu_torch.ops import fr
 
-    def k22(x, inverse):
+    def k22(x, inverse, canonical=False):
         b, n = x.shape[0], x.shape[1]
-        products = b * ((n // 2) * (n.bit_length() - 1) + (n if inverse else 0))
-        return dict(shape=f"B={b} n={n} {'inverse' if inverse else 'forward'}",
-                    ms=time_ms(lambda: fr.ntt(x, inverse), 10),
-                    plain_ms=time_ms(lambda: fr.ntt_plain(x, inverse), 1, warmup=0),
+        rows = 2 if canonical else int(inverse)  # constant-row products an element
+        products = b * ((n // 2) * (n.bit_length() - 1) + rows * n)
+        fn, plain = (fr.ntt_words, fr.ntt_words_plain) if canonical else (fr.ntt, fr.ntt_plain)
+        kind = ("inverse" if inverse else "forward") + (" canonical" if canonical else "")
+        return dict(shape=f"B={b} n={n} {kind}",
+                    ms=time_ms(lambda: fn(x, inverse), 10),
+                    plain_ms=time_ms(lambda: plain(x, inverse), 1, warmup=0),
                     fr_products=products,
                     **bound(sass_fr_mul * products, 2 * 32 * b * n + 32 * (n - 1)))
 
     def k23(op, x, b):
         m = x.shape[0]
         e = fr.R_MODULUS - 2  # the inverse: a square a bit of e, a product a set bit
-        products = m * ((e.bit_length() + bin(e).count("1")) if op == fr.OP_INV else 1)
+        chain = e.bit_length() + bin(e).count("1")
+        products = m * {fr.OP_INV: chain, fr.OP_INV_WORDS: chain + 2}.get(op, 1)
         bb = None if b is None else b.expand_as(x)
-        return dict(shape=f"M={m} {'inv' if op == fr.OP_INV else 'mul'}",
+        name = {fr.OP_INV: "inv", fr.OP_INV_WORDS: "inv_words"}.get(op, "mul")
+        return dict(shape=f"M={m} {name}",
                     ms=time_ms(lambda: fr.fr_ops(op, x, b), 20),
                     plain_ms=time_ms(lambda: fr.fr_ops_plain(op, x, bb), 1, warmup=0),
                     fr_products=products,
                     **bound(sass_fr_mul * products, 2 * 32 * m + (32 if b is not None else 0)))
 
+    words = inputs["words"]
     first, *more = (k22(inputs["batch"], False), k22(inputs["inverse"], True),
-                    k22(inputs["forward"], False))
+                    k22(inputs["forward"], False), k22(words["inverse"], True, True),
+                    k22(words["forward"], False, True))
     ntt_row = dict(name="fr_ntt", route="cuda", source="consensus_specs_tpu_torch/csrc/ntt.cu",
                    replaces="consensus_specs_tpu/ops/fr_jax.py:106", **first,
-                   **{r["shape"]: r for r in more})
+                   **{r["shape"]: r for r in more},
+                   ptxas={"pass": ptxas_function("ntt", "fr_ntt_pass"),
+                          "single": ptxas_function("ntt", "fr_ntt_single")})
     conv, *inv = (k23(fr.OP_MUL, inputs["conv"], inputs["r2"]),
-                  k23(fr.OP_INV, inputs["conv"], None))
+                  k23(fr.OP_INV, inputs["conv"], None),
+                  k23(fr.OP_INV_WORDS, inputs["conv"], None))
     ops_row = dict(name="fr_ops", route="cuda", source="consensus_specs_tpu_torch/csrc/ntt.cu",
                    replaces="consensus_specs_tpu/ops/limb_mont.py:39", **conv,
-                   **{r["shape"]: r for r in inv})
+                   **{r["shape"]: r for r in inv},
+                   ptxas={op: ptxas_function("ntt", f"fr_ops_kernelILi{op}E")
+                          for op in (fr.OP_MUL, fr.OP_INV, fr.OP_INV_WORDS)})
     rows = [ntt_row, ops_row]
     for row in rows:
         name = row["name"]
@@ -2537,9 +2574,12 @@ def das_rows(inputs, parts, err, sass_fr_mul, bound) -> list:
                    library_null_reason="no PyTorch call computes 255-bit modular arithmetic "
                                        "(torch.fft is floating point)")
         for r in [row] + [v for v in row.values() if isinstance(v, dict) and "ms" in v]:
+            r["ms_over_bound"] = r["ms"] / r["bound_ms"]
             print(f"kernel {name} ({r['shape']}): ms={r['ms']:.5f} bound_ms={r['bound_ms']:.6f} "
-                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.3f} launches {row['launches']} "
-                  f"{row['launches_by_part']}", flush=True)
+                  f"({r['bound_by']}) ms_over_bound={r['ms_over_bound']:.2f} plain_ms="
+                  f"{r['plain_ms']:.3f} launches {row['launches']} {row['launches_by_part']}",
+                  flush=True)
+        print(f"ptxas {name}: {row['ptxas']}", flush=True)
     return rows
 
 

@@ -16,13 +16,14 @@ contiguous AND forms a multiplicative coset — the property `verify_sample`'s
 multi-KZG check relies on.
 
 Device mapping: every NTT (the extension's two, recovery's six at n2) runs
-through `ops/fr.ntt_ints` on `device`: the Montgomery conversions on K23,
-the transform on K22 on "cuda" (the default; raises without a card), the
-plain versions on "cpu". A failed launch raises; nothing falls back to the
-host. `use_device=False` keeps the reference's O(n^2) `host_ntt`. The
-zero polynomial (O(missing^2)) and recovery's pointwise products stay on
-the host, as in the reference; recovery's n2 inversions on the coset run
-as one K23 `inv` on `device` (the reference's `pow(z, r - 2, r)` a point
+through `ops/fr.ntt_ints` on `device`: one K22 launch on "cuda" (the
+default; raises without a card) with the Montgomery conversions folded
+into its first and last stage, the plain versions on "cpu". A failed
+launch raises; nothing falls back to the host. `use_device=False` keeps
+the reference's O(n^2) `host_ntt`. The zero polynomial (O(missing^2)) and
+recovery's pointwise products stay on the host, as in the reference;
+recovery's n2 inversions on the coset run as one K23 launch on `device`,
+canonical values in and out (the reference's `pow(z, r - 2, r)` a point
 costs about 0.2 ms of host time each, seconds at mainnet width).
 """
 from __future__ import annotations
@@ -36,7 +37,7 @@ from . import kzg
 
 
 def _ntt(values: list[int], inverse: bool, use_device: bool, device) -> list[int]:
-    """One NTT of a list of ints: K23 + K22 (or their plain versions) on
+    """One NTT of a list of ints: one K22 launch (or its plain version) on
     `device`, or the host DFT with use_device=False."""
     if use_device:
         return fr.ntt_ints(values, inverse, device)

@@ -13,7 +13,9 @@
 // a, b < r that is below (r·r + R·r) / R = r·(r/R + 1) < 2r, since
 // r < 2^255 = R/2. So t < 2r < R fits the eight words plus a zero top word,
 // and one conditional subtraction makes it canonical, as JAX's outputs are:
-// equality is a word compare.
+// equality is a word compare. With b < r and a any eight words, a·b < R·r
+// and t < 2r all the same: a product by R^2 mod r takes any words, reduced
+// or not, to the canonical Montgomery form.
 //
 // Bound: operations (about 300 instructions a product, none of them memory
 // traffic).
@@ -32,6 +34,9 @@ __constant__ uint32_t FR_R[8] = {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda4
 // R mod r: the Montgomery one
 __constant__ uint32_t FR_ONE[8] = {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau,
                                    0xecbc4ff5u, 0x998c4fefu, 0xacc5056fu, 0x1824b159u};
+// R^2 mod r: a product by it takes canonical words into the Montgomery domain
+__constant__ uint32_t FR_R2[8] = {0xf3f29c6du, 0xc999e990u, 0x87925c23u, 0x2b6cedcbu,
+                                  0x7254398fu, 0x05d31496u, 0x9f59ff11u, 0x0748d9d9u};
 // r - 2: Fermat's inverse exponent (bit 254 its top bit)
 __constant__ uint32_t FR_EXP_INV[8] = {0xffffffffu, 0xfffffffeu, 0xfffe5bfeu, 0x53bda402u,
                                        0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};

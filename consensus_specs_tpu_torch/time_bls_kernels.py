@@ -1,5 +1,6 @@
-"""Time K8's inverse, K9, K10, K11, K12, K13 and K25 in any checkout of the
-port, so that two checkouts can be timed in turns on one card.
+"""Time K8's inverse, K9, K10, K11, K12, K13, K25, K22 and K23 in any
+checkout of the port, so that two checkouts can be timed in turns on one
+card.
 
     python3 consensus_specs_tpu_torch/time_bls_kernels.py [--root CHECKOUT] [--out FILE]
         [--rows SUBSTRING,...] [--profile]
@@ -14,7 +15,12 @@ the KZG batch's two shapes, (128, 64) and (512, 255), with the inputs
 the block flush's launch), G1 alone and G2 alone, and at the gossip's 1,024
 (G1 Jacobian and G2); K11 at B = 257 and 1,025; K12's tail at B = 257 and
 its batch mode at 256 items with m2; K9, K11 and K12 in the limb field and
-over RNS residues; K25 at B = 256 and 1,024. The inputs are seeded and made with the
+over RNS residues; K25 at B = 256 and 1,024; K22 at the DAS lane's
+shapes, (1, 16,384) inverse, (1, 32,768) and (64, 32,768) forward, K23's
+product at M = 32,768, and one DAS transform on canonical words with its
+conversions at (1, 32,768) (`ntt_words` where the checkout has it, else
+K23's product by R^2 mod r, K22, K23's product by 1: the same function,
+the same digest). The inputs are seeded and made with the
 checkout's own wrappers (keys sk_0 + j as `crypto/msm_synthetic` makes a
 committee, G2 points from K9's ladders over 8 hashed messages, Miller values
 from K11 over 8 pairs, tiled), so two checkouts see the same inputs; every
@@ -98,12 +104,113 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, str(Path(args.root).resolve()))
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
+    from consensus_specs_tpu_torch.kernels import build
+
+    keep = [k for k in args.rows.split(",") if k]
+    dev = torch.device("cuda")
+    rows = fr_rows(dev)
+    if not keep or any(not any(k in name for name in rows) for k in keep):
+        rows.update(bls_rows(dev))
+    reports = build.build_all(("ntt",))
+    # registers, stack and spills of K9's, K10's, K11's, K13's, K22's and
+    # K23's kernels, ladders and program interpreters, an instance a line
+    ptxas, keys = [], ("ladders_kernel", "miller_loop_kernel", "scalar_mul", "slp_run",
+                       "sums_kernel", "msm_", "fr_ntt_", "fr_ops_kernel")
+    for text in list(BUILT.values()) + list(reports.values()):
+        lines = text.splitlines()
+        ptxas += [" | ".join(x.strip() for x in lines[i:i + 3]) for i, line in enumerate(lines)
+                  if "Function properties for" in line and any(k in line for k in keys)]
+    for line in ptxas:
+        print("ptxas", line, flush=True)
+    from consensus_specs_tpu_torch.ops import bls12 as B
+
+    pkg = Path(B.__file__).resolve().parents[1]
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60).stdout.strip()
+    out = {"card": card, "package": str(pkg), "ptxas": ptxas, "rows": {}}
+    for name, (fn, reps) in rows.items():
+        if keep and not any(k in name for k in keep):
+            continue
+        res = fn()
+        torch.cuda.synchronize()
+        res = tuple(t for t in (res if isinstance(res, tuple) else (res,)) if t is not None)
+        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in res)).hexdigest()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out["rows"][name] = {"ms": start.elapsed_time(end) / reps, "reps": reps,
+                             "sha256": digest[:16]}
+        print(f"{name}: {out['rows'][name]['ms']:.5f} ms ({reps} reps) {digest[:16]}",
+              flush=True)
+        if args.profile:
+            kernels = kernel_times(fn)
+            out["rows"][name]["kernels_us"] = kernels
+            for kname, calls, us in kernels:
+                print(f"  {name} kernel {kname[:90]}: {calls} calls, {us:.2f} us", flush=True)
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+BUILT: dict = {}  # ptxas reports of the BLS sources, when bls_rows built them
+
+
+def fr_rows(dev) -> dict:
+    """{row: (fn, reps)} of K22 and K23 at the DAS lane's shapes, on
+    numpy-seeded canonical words (valid Montgomery words too)."""
+    import numpy as np
+    import torch
+
+    from consensus_specs_tpu_torch.ops import fr
+
+    rng = np.random.default_rng(17)
+    top = fr.R_MODULUS >> 224  # a top word below r's keeps every value below r
+
+    def words(b, n):
+        w = rng.integers(0, 1 << 32, (b, n, 8), dtype=np.uint64)
+        w[..., 7] %= top
+        return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(dev)
+
+    x16, x32, x64 = words(1, 16384), words(1, 32768), words(64, 32768)
+    flat = x32.reshape(-1, 8)
+    r2 = torch.from_numpy(fr.ints_to_words([fr.R2_MOD_R])[0].copy()).to(dev)
+    one = torch.from_numpy(fr.ints_to_words([1])[0].copy()).to(dev)
+    for size, inverse in ((16384, True), (32768, False)):
+        fr.twiddles(size, inverse, dev)  # built once, outside the timed calls
+
+    if hasattr(fr, "ntt_words"):
+        def das_transform():
+            return fr.ntt_words(x32)
+    else:
+        def das_transform():
+            mont = fr.fr_ops(fr.OP_MUL, flat, r2).reshape(x32.shape)
+            return fr.fr_ops(fr.OP_MUL, fr.ntt(mont).reshape(-1, 8), one)
+    return {
+        "fr_ntt_1x16384_inv": (lambda: fr.ntt(x16, True), 50),
+        "fr_ntt_1x32768": (lambda: fr.ntt(x32), 50),
+        "fr_ntt_64x32768": (lambda: fr.ntt(x64), 10),
+        "fr_ops_mul_32768": (lambda: fr.fr_ops(fr.OP_MUL, flat, r2), 50),
+        "das_transform_32768": (das_transform, 50),
+    }
+
+
+def bls_rows(dev) -> dict:
+    """{row: (fn, reps)} of K8's inverse, K9-K13 and K25 (the module
+    docstring's shapes); builds their sources first."""
+    import numpy as np
+    import torch
+
     from consensus_specs_tpu_torch.crypto import bls12_381 as oracle
     from consensus_specs_tpu_torch.crypto.bls_torch import zbits_from_ints
     from consensus_specs_tpu_torch.crypto import msm_synthetic
@@ -113,19 +220,7 @@ def main(argv=None) -> int:
     from consensus_specs_tpu_torch.ops import bls12 as B
     from consensus_specs_tpu_torch.ops import fp
 
-    pkg = Path(B.__file__).resolve().parents[1]
-    reports = build.build_all(("fp", "rlc", "pairing", "msm"))
-    # registers, stack and spills of K9's, K10's, K11's and K13's kernels,
-    # ladders and program interpreters, an instance a line
-    ptxas, keys = [], ("ladders_kernel", "miller_loop_kernel", "scalar_mul", "slp_run",
-                       "sums_kernel", "msm_")
-    for text in reports.values():
-        lines = text.splitlines()
-        ptxas += [" | ".join(x.strip() for x in lines[i:i + 3]) for i, line in enumerate(lines)
-                  if "Function properties for" in line and any(k in line for k in keys)]
-    for line in ptxas:
-        print("ptxas", line, flush=True)
-    dev = torch.device("cuda")
+    BUILT.update(build.build_all(("fp", "rlc", "pairing", "msm")))
     F1 = oracle.FP_FIELD
     rng = np.random.default_rng(0)
     sk0 = int(rng.integers(1, 2**62))
@@ -166,7 +261,7 @@ def main(argv=None) -> int:
         return lambda: B.rlc_ladders(None if k is None else k[:n], None if s is None else s[:n],
                                      z[:n], affine)
 
-    rows = {
+    return {
         "rlc_ladders_N256": (ladders(pk1024, sigs, 256), 3),
         "rlc_ladders_g1_N256": (ladders(pk1024, None, 256), 3),
         "rlc_ladders_g2_N256": (ladders(None, sigs, 256), 3),
@@ -199,38 +294,6 @@ def main(argv=None) -> int:
         "f12_product_B256": (lambda: B.f12_product(f12[:256]), 5),
         "f12_product_B1024": (lambda: B.f12_product(f12), 5),
     }
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, timeout=60).stdout.strip()
-    out = {"card": card, "package": str(pkg), "ptxas": ptxas, "rows": {}}
-    keep = [k for k in args.rows.split(",") if k]
-    for name, (fn, reps) in rows.items():
-        if keep and not any(k in name for k in keep):
-            continue
-        res = fn()
-        torch.cuda.synchronize()
-        res = tuple(t for t in (res if isinstance(res, tuple) else (res,)) if t is not None)
-        digest = hashlib.sha256(b"".join(t.cpu().numpy().tobytes() for t in res)).hexdigest()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        out["rows"][name] = {"ms": start.elapsed_time(end) / reps, "reps": reps,
-                             "sha256": digest[:16]}
-        print(f"{name}: {out['rows'][name]['ms']:.5f} ms ({reps} reps) {digest[:16]}",
-              flush=True)
-        if args.profile:
-            kernels = kernel_times(fn)
-            out["rows"][name]["kernels_us"] = kernels
-            for kname, calls, us in kernels:
-                print(f"  {name} kernel {kname[:90]}: {calls} calls, {us:.2f} us", flush=True)
-    line = json.dumps(out)
-    print(line)
-    if args.out:
-        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.out).write_text(line + "\n")
-    return 0
 
 
 if __name__ == "__main__":

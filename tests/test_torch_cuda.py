@@ -938,35 +938,94 @@ def _fr_words(m, seed, dev):
 # the plain inverse costs 380 plain products: held at M <= 1000
 @pytest.mark.parametrize("op,m", [(op, m) for op in (tfr.OP_MUL, tfr.OP_ADD, tfr.OP_SUB)
                                   for m in (1, 1000, 32768)]
-                         + [(tfr.OP_INV, 1), (tfr.OP_INV, 1000)])
+                         + [(op, m) for op in (tfr.OP_INV, tfr.OP_INV_WORDS) for m in (1, 1000)])
 def test_fr_ops_kernel_matches_plain(cuda, op, m):
     a = _fr_words(m, m + op, cuda)
     b = _fr_words(m, m + 7, cuda).flip(0).contiguous()
-    if op != tfr.OP_INV:
+    unary = op in (tfr.OP_INV, tfr.OP_INV_WORDS)
+    if op == tfr.OP_INV_WORDS:  # words at or above r, reduced by the kernel
+        a[-1] = -1
+    if not unary:
         b[-1] = 0  # sub with b = 0
-    bb = None if op == tfr.OP_INV else b
+    bb = None if unary else b
     build.reset_launches()
     got = tfr.fr_ops(op, a, bb)
     assert build.LAUNCHES["fr_ops"] == 1
     torch.cuda.synchronize()
     assert torch.equal(got, tfr.fr_ops_plain(op, a, bb))
-    if op != tfr.OP_INV:  # b as one (8,) row, read by every thread
+    if not unary:  # b as one (8,) row, read by every thread
         assert torch.equal(tfr.fr_ops(op, a, b[0]), tfr.fr_ops_plain(op, a, b[0].expand_as(a)))
 
 
 @pytest.mark.parametrize("shape,inverse", [((64, 32768), False), ((1, 16384), True),
                                            ((1, 32768), False), ((3, 1), False), ((3, 1), True),
                                            ((3, 2), False), ((3, 2), True), ((5, 16), True),
-                                           ((2, 4096), True)])
+                                           ((2, 4096), True), ((64, 32768), True),
+                                           ((3, 16384), False), ((3, 256), True),
+                                           ((64, 256), False), ((3, 512), False),
+                                           ((1, 512), True), ((1, 65536), True),
+                                           ((2, 131072), False)])
 def test_fr_ntt_kernel_matches_plain(cuda, shape, inverse):
     """K22 at the DAS lane's shapes (a slot's 64 extensions, a blob's
-    inverse, one extension) and at the edges n = 1 and n = 2."""
+    inverse, one extension), batches of 3 and 64, at the split points of
+    its passes (n = 2^8 pass A alone, 2^9 a pass B of one stage, 2^16 two
+    full passes, 2^17 three) and at the edges n = 1 and n = 2."""
     x = _fr_words(shape[0] * shape[1], shape[1] + int(inverse), cuda).reshape(*shape, 8)
     build.reset_launches()
     got = tfr.ntt(x, inverse)
     assert build.LAUNCHES["fr_ntt"] == 1
     torch.cuda.synchronize()
     assert torch.equal(got, tfr.ntt_plain(x, inverse))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_fr_ntt_kernel_at_every_tile_log(cuda, inverse):
+    """K22's entry at every pass A split t = 1 .. 10 for n = 2^10 (the
+    wrapper's own t is 8), Montgomery and canonical."""
+    n = 1 << 10
+    x = _fr_words(3 * n, 40 + int(inverse), cuda).reshape(3, n, 8)
+    table, scale = tfr.twiddles(n, inverse, cuda)
+    want = tfr.ntt_plain(x, inverse)
+    want_words = tfr.ntt_words_plain(x, inverse)
+    pre = tfr.const_row(tfr.R2_MOD_R, cuda)
+    post = tfr._inverse_n(n, cuda) if inverse else tfr.const_row(1, cuda)
+    for t in range(1, 11):
+        assert torch.equal(tfr._launch_ntt(x, table, None, scale, 10, t), want), t
+        assert torch.equal(tfr._launch_ntt(x, table, pre, post, 10, t), want_words), t
+
+
+@pytest.mark.parametrize("shape,inverse", [((1, 16384), True), ((1, 32768), False),
+                                           ((64, 32768), False), ((3, 1), True),
+                                           ((3, 2), False), ((2, 512), True)])
+def test_fr_ntt_words_matches_its_plain_composition(cuda, shape, inverse):
+    """The canonical entry (one K22 launch, the conversions folded in)
+    against K23's product by R^2, `ntt_plain`, K23's product by 1, with
+    words at or above r among the inputs."""
+    x = _fr_words(shape[0] * shape[1], shape[1] + 3 * int(inverse), cuda).reshape(*shape, 8)
+    x.view(-1, 8)[-1] = -1  # 2^256 - 1
+    x.view(-1, 8)[0] = torch.tensor(tfr.ints_to_words([tfr.R_MODULUS])[0], device=cuda)
+    build.reset_launches()
+    got = tfr.ntt_words(x, inverse)
+    assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (1, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tfr.ntt_words_plain(x, inverse))
+
+
+def test_das_entries_launch_k22_once_and_k23_once(cuda):
+    """`ntt_ints` is one K22 launch and no K23; `inv_ints` one K23."""
+    from consensus_specs_tpu_torch.ops.fr_host import host_ntt
+
+    rng = np.random.default_rng(15)
+    vals = [0, tfr.R_MODULUS] + [int.from_bytes(rng.bytes(32), "little") for _ in range(62)]
+    for inverse in (False, True):
+        build.reset_launches()
+        got = tfr.ntt_ints(vals, inverse, cuda)
+        assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (1, 0)
+        assert got == host_ntt([v % tfr.R_MODULUS for v in vals], inverse=inverse)
+    build.reset_launches()
+    got = tfr.inv_ints(vals, cuda)
+    assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (0, 1)
+    assert got == [pow(v % tfr.R_MODULUS, tfr.R_MODULUS - 2, tfr.R_MODULUS) for v in vals]
 
 
 def test_fr_ntt_round_trip_and_host_dft_on_card(cuda):
@@ -990,7 +1049,7 @@ def test_fr_kernels_check_their_inputs(cuda):
 def test_das_on_card_matches_cpu(cuda):
     """The port's das module and compiled das spec on the card (K22 + K23)
     equal the same on the CPU (the plain versions), with the launches the
-    path implies: two K22 and four K23 an extension, six K22 a recovery."""
+    path implies: two K22 and no K23 an extension, six K22 a recovery."""
     from consensus_specs_tpu_torch.compiler import spec_compiler as tcomp
     from consensus_specs_tpu_torch.crypto import das as tdas
 
@@ -998,7 +1057,7 @@ def test_das_on_card_matches_cpu(cuda):
     data = [int.from_bytes(rng.bytes(32), "little") % tdas.MODULUS for _ in range(1024)]
     build.reset_launches()
     full = tdas.extend_data(data, device=cuda)
-    assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (2, 4)
+    assert (build.LAUNCHES["fr_ntt"], build.LAUNCHES["fr_ops"]) == (2, 0)
     assert full == tdas.extend_data(data, device="cpu")
     keep = {i: full[i] for i in sorted(random.Random(14).sample(range(2048), 1100))}
     build.reset_launches()

@@ -158,8 +158,8 @@ def test_ntt_ints_without_a_card_raises():
 
 
 def test_cuda_constants_match():
-    """csrc/fr.cuh's constant tables hold r, R mod r, r - 2 and -r^-1 mod
-    2^32 as ops/fr.py computes them."""
+    """csrc/fr.cuh's constant tables hold r, R mod r, R^2 mod r, r - 2 and
+    -r^-1 mod 2^32 as ops/fr.py computes them."""
     text = (Path(fr.__file__).parents[1] / "csrc" / "fr.cuh").read_text()
 
     def table(name):
@@ -169,6 +169,7 @@ def test_cuda_constants_match():
 
     assert table("FR_R") == R_MODULUS
     assert table("FR_ONE") == fr.R_MOD_R
+    assert table("FR_R2") == fr.R2_MOD_R
     assert table("FR_EXP_INV") == R_MODULUS - 2
     assert int(re.search(r"#define FR_N0 (0x[0-9a-f]+)u", text).group(1), 16) == fr.N0_32
     top = int(re.search(r"#define FR_EXP_INV_TOP (\d+)", text).group(1))
